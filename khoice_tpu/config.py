@@ -2,7 +2,7 @@
 
 Single dataclass replacing the reference's config/config.yaml:1-15 +
 hardcoded grids (workflow/Snakefile:36,39). All reference knobs carried
-over; mesh/engine knobs are new (TPU-native).
+over; mesh/engine knobs are new (engine-specific).
 """
 
 from __future__ import annotations
@@ -49,7 +49,7 @@ class KhoiceConfig:
     union_cs: int = 5000         # reference passes -cs5000 on unions
     hist_cx: int = 10000         # kmc_tools histogram default upper bound
 
-    # --- engine knobs (new, TPU-native) ---
+    # --- engine knobs (new, engine-specific) ---
     seed: int = 0                # seeded randomness (pivot choice, tie-breaks)
     mesh_shards: int = 1         # devices along the k-mer key-range axis
     read_sim_seed: int = 0

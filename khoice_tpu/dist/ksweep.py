@@ -38,11 +38,11 @@ from jax.sharding import Mesh, PartitionSpec as P
 from ..engine.bits import SENTINEL, searchsorted_words, words_eq
 from .sharded import rank_positions
 from ..engine.ksweep import (
-    MASK_MEMBERS_XLA,
+    MASK_MEMBERS_OCC,
     PACK_GID_BITS,
     PACK_NIO_BITS,
     _extract_fwd_sweep,
-    _scan_multi_k_xla,
+    _scan_multi_k,
     plan_sweep,
 )
 from .mesh import AXIS
@@ -172,7 +172,7 @@ def _local_sweep(
     sm = tuple(jax.lax.sort(list(flat), num_keys=n_ops, is_stable=False))
 
     if mode == "occ":
-        dp = _scan_multi_k_xla(
+        dp = _scan_multi_k(
             sm[:KW],
             None if packed else sm[KW],
             ks,
@@ -250,14 +250,14 @@ def run_sweep_plan_raw(
     replicated output.  Returns ({k: canonical stats np.ndarray},
     leftover ks for the caller's per-k fallback)."""
     from ..engine.occurrence import pack_members
-    from ..engine.ksweep import MASK_MEMBERS_PALLAS
+    from ..engine.ksweep import MASK_MEMBERS_CLASSIFY
 
     d = mesh.devices.size
     codes, gids = pack_members(member_codes)
     n = codes.shape[0]
     n_members = len(member_codes)
     if mask_limit is None:
-        mask_limit = MASK_MEMBERS_XLA if mode == "occ" else MASK_MEMBERS_PALLAS
+        mask_limit = MASK_MEMBERS_OCC if mode == "occ" else MASK_MEMBERS_CLASSIFY
     classes, remaining = plan_sweep(ks, n_members, mask_limit)
     out: Dict[int, np.ndarray] = {}
     for kmax, KW, cks, packed in classes:
@@ -315,7 +315,7 @@ def run_sweep_plan(
     n_members = len(member_codes)
     stats, remaining = run_sweep_plan_raw(
         mesh, member_codes, ks, cs, bucket_cap, slack, upload, to_host,
-        mode="occ", mask_limit=MASK_MEMBERS_XLA,
+        mode="occ", mask_limit=MASK_MEMBERS_OCC,
     )
     out: Dict[int, List[int]] = {}
     m = min(n_members, cx)

@@ -2,8 +2,8 @@
 
 The reference fans exp2-6 across cores exactly like exp1 (one Snakemake
 rule instance per (k, dataset), workflow/rules/exp_type_2.smk:354-380,
-exp_type_6.smk:264-319); round 4 left the classification experiments
-single-device (VERDICT r4 missing #1).  These drivers give the four
+exp_type_6.smk:264-319), where the classification sweeps used to run
+on a single device.  These drivers give the four
 classify modes of engine/ksweep_classify.py the same key-range SPMD
 treatment as the exp1 sweep (dist/ksweep.py):
 

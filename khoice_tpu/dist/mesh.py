@@ -2,7 +2,7 @@
 
 The reference has no distributed backend at all — its parallelism is
 Snakemake task fan-out plus the filesystem (SURVEY.md section 2.3). The
-TPU-native equivalent here: one mesh axis "kv" partitions canonical k-mer
+equivalent here: one mesh axis "kv" partitions canonical k-mer
 key space into contiguous ranges with *fixed split points*. Aligned
 partitioning makes every set operation (union/intersect/subtract, the
 kmc_tools surface) embarrassingly parallel: only counting does one
@@ -31,9 +31,18 @@ AXIS = "kv"
 
 
 def make_mesh(n_devices: Optional[int] = None, devices: Optional[Sequence] = None) -> Mesh:
+    """1-D "kv" mesh over `devices`, or over the first `n_devices` of
+    jax.devices() (all of them when None).  Asking for more devices than
+    exist raises: a smaller mesh would silently run the sharded path on
+    fewer devices than the user asked for."""
     if devices is None:
         devices = jax.devices()
         if n_devices is not None:
+            if n_devices > len(devices):
+                raise ValueError(
+                    f"mesh of {n_devices} devices requested, but only "
+                    f"{len(devices)} {devices[0].platform} device(s) exist"
+                )
             devices = devices[:n_devices]
     return Mesh(np.array(devices), (AXIS,))
 
@@ -46,8 +55,8 @@ def init_multihost(
     """Initialize the jax.distributed runtime and return the global mesh.
 
     The multi-host analogue of the reference's (non-existent) distributed
-    backend — counting's all_to_all rides ICI within a slice and DCN
-    across hosts. Exchange volume is bounded before any data leaves a
+    backend — counting's all_to_all rides the devices' interconnect
+    (NVLink within a host) and the network across hosts. Exchange volume is bounded before any data leaves a
     device: each device sorts and dedupes its (key, gid) pairs locally
     and buckets in dedup-rank space (dist/occurrence.py), so the
     collective carries deduped runs, not raw k-mer streams (SURVEY.md

@@ -5,7 +5,8 @@ fan-out on one machine (SURVEY.md section 2.3). Here the same SPMD
 programs that run on one host's mesh run across `jax.distributed`
 processes: each host materializes only its own slab rows and
 `jax.make_array_from_process_local_data` assembles the global sharded
-array; collectives ride ICI within a host and DCN across hosts.
+array; collectives ride NVLink within a host and the network across
+hosts.
 
 Cross-host volume control: each device locally sorts and dedupes its
 (key, gid) pairs BEFORE the all_to_all (dist/occurrence.py), so the
@@ -14,7 +15,7 @@ in dedup-rank space so repeat-heavy shards cannot overflow.
 
 Tested with 2 CPU processes + gloo collectives over a localhost
 coordinator (tests/test_multihost.py) — the same code path a real
-multi-host TPU slice takes, minus hardware.
+multi-host run takes, minus hardware.
 """
 
 from __future__ import annotations

@@ -310,8 +310,8 @@ def _local_occurrence_dyn_packed(
 @lru_cache(maxsize=64)
 def _dyn_occ_fn(mesh, kmax, ow, n_members, n_shards, cs, cx, bucket_cap, chunk):
     """Jitted shard_map for the dynamic-k path, cached so repeated calls
-    (the k sweep) reuse one traced/compiled program per word class —
-    VERDICT round-1 item 3 (construction used to happen per call)."""
+    (the k sweep) reuse one traced/compiled program per word class
+    instead of constructing one per call."""
     local = partial(
         _local_occurrence_dyn_packed,
         kmax=kmax,

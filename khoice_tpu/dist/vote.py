@@ -3,8 +3,7 @@
 The reference fans exp6 across cores exactly like the other experiments
 (one Snakemake rule instance per (k, pivot), workflow/rules/
 exp_type_6.smk:264-319, then merge_lists.py -r votes each pivot's reads);
-round 4 left exp6 single-device (VERDICT r4 missing #1 named its voting
-merge-join explicitly).  This module gives classify/annotate's
+exp6 used to vote on a single device.  This module gives classify/annotate's
 multi-pivot merge voting the same key-range SPMD treatment as the exp1
 sweep (dist/ksweep.py):
 

@@ -1,7 +1,7 @@
 """Multi-word uint32 key arithmetic for k-mer keys.
 
-TPUs have no fast native 64-bit integers, so a k-mer is encoded as a tuple of
-uint32 "words", most-significant first, holding the 2k-bit base-4 number with
+JAX runs with 32-bit integers unless x64 is enabled, so a k-mer is encoded as
+a tuple of uint32 "words", most-significant first, holding the 2k-bit base-4 number with
 A=0, C=1, G=2, T=3.  Numeric order of this encoding equals lexicographic
 order of the k-mer string under A<C<G<T — the order KMC3's sorted dumps use
 and the order the reference's Python canonicalization relies on

@@ -2,8 +2,8 @@
 
 The reference runs its whole pipeline once per k over a 30-point grid
 (workflow/Snakefile:36), so the fused occurrence step (engine/occurrence.py)
-pays one (key, gid) sort per k — and profiling shows that sort is 73-80% of
-the fused step's device time.  This module removes the per-k sort entirely:
+pays one (key, gid) sort per k, and that sort dominates the fused step's
+device time.  This module removes the per-k sort entirely:
 
 THE TRICK — canonical histograms from one forward-prefix sort of the
 DOUBLED text (each genome followed by its reverse complement):
@@ -55,25 +55,26 @@ NIO_BITS = 8
 # reference's full k grid (kmax=49, KW=4, 30 spare bits) ONE 4-operand
 # doubled-text sort serves all 30 ks, vs 3-operand (k<=30) + 4-operand
 # (33<k<=46) + per-k (k=49) sorts before.  gid rides in 6 bits (the
-# two-channel uint32 mask scan covers n_members <= MASK_MEMBERS_XLA = 64)
+# two-channel uint32 mask scan covers n_members <= MASK_MEMBERS_OCC = 64)
 # and nio in 6 (kmax <= 63).  The payload must stay clear of every per-k
-# comparison: _key_new_mask reads bits >= spare, and in _rev2comp_words
+# comparison: _prefix_differs reads bits >= spare, and in _rev2comp_words
 # the payload's low 2-bit groups land in the top bits of rev, above the
 # 2k bits _pal_mask inspects; the sentinel encoding additionally needs
 # >= 1 spare bit ABOVE the 12 payload bits that is one in the sentinel
-# and zero in every real element (fastsort.sentinel_encode_packed) —
+# and zero in every real element (streaming.sentinel_encode_packed) —
 # hence spare >= PACK_MIN_SPARE = 14 (group-aligned payload + 2 guard
 # bits).
 PACK_GID_BITS = 6
 PACK_NIO_BITS = 6
 PACK_MIN_SPARE = 14
 
-# The multi-k scan's member-presence masks: the XLA scan runs one uint32
-# one-hot OR-scan channel per 32 members (two channels at <= 64 — beyond
-# that the extra scan volume and the 6-bit packed gid field stop paying);
-# the Pallas kernel keeps the single-channel <= 32 fast path.
-MASK_MEMBERS_XLA = 64
-MASK_MEMBERS_PALLAS = 32
+# The multi-k scan's member-presence masks: the occurrence scan runs one
+# uint32 one-hot OR-scan channel per 32 members (two channels at <= 64 —
+# beyond that the extra scan volume and the 6-bit packed gid field stop
+# paying); the classification scans read bit-sliced single-channel masks,
+# so their groups stop at 32 members.
+MASK_MEMBERS_OCC = 64
+MASK_MEMBERS_CLASSIFY = 32
 
 
 def _pack_spare(kmax: int, KW: int) -> int:
@@ -107,15 +108,22 @@ def sweep_classes(ks: Sequence[int]) -> List[tuple]:
     ]
 
 
-def _shl_words(words: tuple, s: int) -> tuple:
-    """Left-shift a KW-word (MSB-first) tuple by a static bit count s < 32."""
-    if s == 0:
-        return words
+def _shl_words(words: tuple, t) -> tuple:
+    """Left-shift a KW-word (MSB-first) tuple by t bits, 0 <= t < 32*KW;
+    t may be a traced scalar (the word and bit offsets are selected, not
+    indexed)."""
+    KW = len(words)
+    z = jnp.zeros_like(words[0])
+    ext = tuple(words) + (z,) * KW
+    ws = t // 32
+    bs = jnp.asarray(t % 32, jnp.uint32)
     out = []
-    n = len(words)
-    for i in range(n):
-        lo = (words[i + 1] >> (32 - s)) if i + 1 < n else jnp.zeros_like(words[i])
-        out.append((words[i] << s) | lo)
+    for i in range(KW):
+        acc = z
+        for w in range(KW):
+            lo = jnp.where(bs == 0, z, ext[i + w + 1] >> (jnp.uint32(32) - bs))
+            acc = jnp.where(ws == w, (ext[i + w] << bs) | lo, acc)
+        out.append(acc)
     return tuple(out)
 
 
@@ -190,57 +198,35 @@ def _extract_fwd_sweep(codes2, gids2, kmax: int, KW: int, packed: bool = False):
     return fwd, payload
 
 
-def _key_new_mask(skeys: tuple, prev: tuple, k: int, KW: int):
-    """True where the top 2k bits differ from the previous element."""
+def _prefix_differs(a: tuple, b: tuple, k, KW: int):
+    """True where the top 2k bits of the KW-word values a and b differ.
+    k may be a Python int or a traced scalar."""
     shift = KW * 32 - 2 * k  # key bits for k live at positions >= shift
-    neq = jnp.zeros_like(skeys[0], dtype=jnp.bool_)
+    neq = jnp.zeros(a[0].shape, jnp.bool_)
     for i in range(KW):
-        lo_bit = (KW - 1 - i) * 32  # bit position of word i's LSB
-        if lo_bit >= shift:
-            neq = neq | (skeys[i] != prev[i])
-        elif lo_bit + 32 > shift:
-            s = shift - lo_bit
-            neq = neq | ((skeys[i] >> s) != (prev[i] >> s))
+        s = shift - (KW - 1 - i) * 32  # low bits of word i outside the prefix
+        sc = jnp.asarray(jnp.clip(s, 0, 31), jnp.uint32)
+        neq = neq | ((s < 32) & (((a[i] ^ b[i]) >> sc) != 0))
     return neq
 
 
-def _pal_mask(skeys: tuple, rev: tuple, k: int, KW: int):
-    """True where the k-prefix equals its own reverse complement (pal run)."""
-    shift = KW * 32 - 2 * k
-    # lhs = key >> shift, rhs = rev & ((1 << 2k) - 1), compared word-wise
-    eq = jnp.ones_like(skeys[0], dtype=jnp.bool_)
-    for i in range(KW):
-        # word i of (key >> shift): take from words above
-        wshift, bshift = divmod(shift, 32)
-        src = i - wshift
-        lhs = jnp.zeros_like(skeys[0])
-        if src >= 0:
-            lhs = skeys[src] >> bshift
-            if bshift > 0 and src - 1 >= 0:
-                lhs = lhs | (skeys[src - 1] << (32 - bshift))
-        # word i of rev masked to low 2k bits
-        lo_bit = (KW - 1 - i) * 32
-        if lo_bit >= 2 * k:
-            rhs = jnp.zeros_like(rev[i])
-        elif lo_bit + 32 <= 2 * k:
-            rhs = rev[i]
-        else:
-            rhs = rev[i] & jnp.uint32((1 << (2 * k - lo_bit)) - 1)
-        if lo_bit + 32 > 2 * k:  # mask lhs identically (top bits beyond 2k)
-            if lo_bit >= 2 * k:
-                lhs = jnp.zeros_like(lhs)
-            else:
-                lhs = lhs & jnp.uint32((1 << (2 * k - lo_bit)) - 1)
-        eq = eq & (lhs == rhs)
-    return eq
+def _pal_mask(skeys: tuple, rev: tuple, k, KW: int):
+    """True where the k-prefix equals its own reverse complement (pal run).
+
+    rev's low 2k bits hold the reverse complement of the k-prefix
+    (_rev2comp_words), so shifting them up to the top 2k bits lines them
+    up with the prefix.  Always False at odd k: an odd-length k-mer never
+    equals its reverse complement (its middle base would have to equal
+    its own complement)."""
+    return ~_prefix_differs(skeys, _shl_words(rev, KW * 32 - 2 * k), k, KW)
 
 
-# Segmented scans: jax.lax.associative_scan's recursive odd/even
-# decomposition compiles fine on CPU but the TPU AOT compiler blows up
-# (OOM-killed) past ~50M elements, so these are blocked two-level
-# Hillis-Steele scans instead: log2(C) unrolled in-row steps on a
-# [n/C, C] view, a recursive scan of the row summaries, and one
-# broadcast combine — a small static graph at any size.
+# Segmented scans, as blocked two-level Hillis-Steele scans: log2(C)
+# unrolled in-row steps on a [n/C, C] view, a recursive scan of the row
+# summaries, and one broadcast combine — a small static graph at any
+# size.  Inside the exp1 sweep on an H100 (400 W limit) this form ran
+# 250 ms vs 353 ms for jax.lax.associative_scan at 84M elements and
+# within 2% at 336M, and compiled in 11-14 s vs 16-29 s (PERF.md).
 
 _SEG_C = 1024
 
@@ -301,10 +287,10 @@ def _seg_sum_scan(v, boundary):
     return out
 
 
-def _scan_multi_k_xla(
+def _scan_multi_k(
     skeys, spayload, ks, kmax, KW, n_members, cs, packed=False, raw=False
 ):
-    """XLA fallback of the multi-k occurrence scan (exact; CPU-friendly).
+    """Multi-k occurrence scan over one sorted doubled-text array (exact).
 
     Returns (n_ks, n_members) int32: canonical histograms, bin b-1 =
     #classes present in exactly b members. raw=True instead returns the
@@ -313,21 +299,17 @@ def _scan_multi_k_xla(
     a class's two strand runs can land in different shards and the
     halving is only exact after the cross-shard psum.
     """
-    prev = tuple(jnp.roll(w, 1) for w in skeys)
-    if packed:
-        gid = (skeys[-1] >> PACK_NIO_BITS) & jnp.uint32((1 << PACK_GID_BITS) - 1)
-        nio = skeys[-1] & jnp.uint32((1 << PACK_NIO_BITS) - 1)
-    else:
-        gid = (spayload >> NIO_BITS) & jnp.uint32(0xFF)
-        nio = spayload & jnp.uint32((1 << NIO_BITS) - 1)
-    rev = _rev2comp_words(skeys)
     # one uint32 one-hot channel per 32 members: each channel carries its
     # own segmented OR scan and the popcounts add (a member lives in
     # exactly one channel) — removes the former 32-member sweep cliff
     n_ch = max(1, (n_members + 31) // 32)
-    hists_d, hists_p = [], []
-    for k in ks:
-        key_new = _key_new_mask(skeys, prev, k, KW).at[0].set(True)
+
+    def one_k(k):
+        # everything derived from skeys is rebuilt per k inside the loop
+        # body, so only the sorted arrays stay live across iterations
+        gid, nio = _payload_fields(skeys, spayload, packed)
+        prev = tuple(jnp.roll(w, 1) for w in skeys)
+        key_new = _prefix_differs(skeys, prev, k, KW).at[0].set(True)
         bsum = None
         for c in range(n_ch):
             if n_ch == 1:
@@ -342,25 +324,33 @@ def _scan_multi_k_xla(
             bsum = pc if bsum is None else bsum + pc
         run_end = jnp.roll(key_new, -1).at[-1].set(True)
         b = jnp.minimum(bsum.astype(jnp.uint32), jnp.uint32(cs))
-        bins_d = [
-            jnp.sum((run_end & (b == i)).astype(jnp.int32))
-            for i in range(1, n_members + 1)
-        ]
-        hist_d = jnp.stack(bins_d)
-        if k % 2 == 0:
-            pal = _pal_mask(skeys, rev, k, KW)
-            bins_p = [
-                jnp.sum((run_end & pal & (b == i)).astype(jnp.int32))
+        pal = _pal_mask(skeys, _rev2comp_words(skeys), k, KW)
+        return jnp.stack([
+            jnp.stack([
+                jnp.sum((sel & (b == i)).astype(jnp.int32))
                 for i in range(1, n_members + 1)
-            ]
-            hist_p = jnp.stack(bins_p)
-        else:
-            hist_p = jnp.zeros((n_members,), jnp.int32)
-        hists_d.append(hist_d)
-        hists_p.append(hist_p)
+            ])
+            for sel in (run_end, run_end & pal)
+        ])
+
+    # one loop iteration per k: one compile serves the whole grid, and
+    # only one k's per-element temporaries are live at a time
+    dp = jax.lax.map(one_k, jnp.asarray(ks, jnp.int32))  # (n_ks, 2, n_members)
     if raw:
-        return jnp.stack([jnp.stack(hists_d), jnp.stack(hists_p)])
-    return jnp.stack([(d + p) // 2 for d, p in zip(hists_d, hists_p)])
+        return jnp.transpose(dp, (1, 0, 2))
+    return (dp[:, 0] + dp[:, 1]) // 2
+
+
+def _payload_fields(skeys, spayload, packed):
+    """(gid, nio) of every sorted element, from the packed last key word
+    or the separate payload word."""
+    if packed:
+        gid = (skeys[-1] >> PACK_NIO_BITS) & jnp.uint32((1 << PACK_GID_BITS) - 1)
+        nio = skeys[-1] & jnp.uint32((1 << PACK_NIO_BITS) - 1)
+    else:
+        gid = (spayload >> NIO_BITS) & jnp.uint32(0xFF)
+        nio = spayload & jnp.uint32((1 << NIO_BITS) - 1)
+    return gid, nio
 
 
 def _sweep_doubled(codes, gids, kmax, KW, packed):
@@ -369,13 +359,8 @@ def _sweep_doubled(codes, gids, kmax, KW, packed):
     shared front half of every sweep consumer (exp1 histograms and the
     classification scans in ksweep_classify.py).
 
-    The sort is the flat variadic lax.sort: honest microbenchmarks
-    (tools/microbench_fastsort.py — outputs consumed so XLA cannot DCE
-    co-sorted operands) show operand MOVEMENT, not comparator width,
-    dominates it (nk1 204 ms vs nk4 229 ms at 35.6M x 4 ops), so the
-    partition+window scheme in engine/fastsort.py does not beat it; the
-    promising replacement is VMEM row sorts (64 ms) + a Pallas
-    merge-path kernel (engine/fastsort.py)."""
+    The sort is one flat variadic lax.sort over KW key words (plus the
+    payload word when it does not pack)."""
     rc = jnp.where(codes < 4, codes ^ 3, codes)[::-1]
     codes2 = jnp.concatenate([codes, rc])
     gids2 = jnp.concatenate([gids, gids[::-1]])
@@ -387,36 +372,19 @@ def _sweep_doubled(codes, gids, kmax, KW, packed):
     return tuple(ops[:KW]), ops[KW]
 
 
-@partial(jax.jit, static_argnums=(2, 3, 4, 5, 6, 7, 8))
-def _sweep_class_fn(codes, gids, ks, kmax, KW, n_members, cs, use_pallas, packed=False):
+@partial(jax.jit, static_argnums=(2, 3, 4, 5, 6, 7))
+def _sweep_class_fn(codes, gids, ks, kmax, KW, n_members, cs, packed=False):
     """All of `ks`'s canonical occurrence histograms from one doubled-text
     sort. codes: uint8 [n] (packed members, code 4 separators), gids:
     uint32 [n]. packed=True drops the payload operand from the sort (gid +
     nio ride the last key word's spare bits). Returns
     (len(ks), n_members) int32."""
     skeys, spay = _sweep_doubled(codes, gids, kmax, KW, packed)
-    if use_pallas:
-        from ..kernels.ksweep_scan_pallas import scan_multi_k_pallas
-
-        return scan_multi_k_pallas(
-            skeys, spay, ks, kmax, KW, n_members, cs, packed=packed
-        )
-    return _scan_multi_k_xla(skeys, spay, ks, kmax, KW, n_members, cs, packed=packed)
-
-
-def _sweep_pallas_ok(n2: int, n_members: int) -> bool:
-    from ..kernels.ksweep_scan_pallas import TILE
-    from .occurrence import compute_on_tpu
-
-    return (
-        n2 % TILE == 0
-        and n_members <= MASK_MEMBERS_PALLAS
-        and compute_on_tpu()
-    )
+    return _scan_multi_k(skeys, spay, ks, kmax, KW, n_members, cs, packed=packed)
 
 
 def plan_sweep(ks: Sequence[int], n_members: int,
-               mask_limit: int = MASK_MEMBERS_PALLAS):
+               mask_limit: int = MASK_MEMBERS_CLASSIFY):
     """Choose the sort plan: ([(kmax, KW, cks, packed)], per_k_fallback_ks).
 
     Candidate plans, costed in sorted-words-per-text-position (doubled
@@ -434,7 +402,7 @@ def plan_sweep(ks: Sequence[int], n_members: int,
 
     The cheaper plan wins; n_members > mask_limit disables the sweep
     (exp1's occurrence consumers scan multi-channel masks and pass
-    MASK_MEMBERS_XLA = 64; the classification scans' bit-sliced masks
+    MASK_MEMBERS_OCC = 64; the classification scans' bit-sliced masks
     are single-channel, so they keep the 32-member default).
     """
     from .occurrence import occ_words_static
@@ -498,10 +466,8 @@ def occurrence_histograms_sweep_packed(
 
     codes, gids = packed
     out: Dict[int, List[int]] = {}
-    n2 = 2 * int(codes.shape[0])
-    classes, remaining = plan_sweep(ks, n_members, MASK_MEMBERS_XLA)
+    classes, remaining = plan_sweep(ks, n_members, MASK_MEMBERS_OCC)
     for kmax, KW, cks, pay_packed in classes:
-        use_pallas = _sweep_pallas_ok(n2, n_members)
         hists = np.asarray(
             _sweep_class_fn(
                 jnp.asarray(codes),
@@ -511,7 +477,6 @@ def occurrence_histograms_sweep_packed(
                 KW,
                 n_members,
                 cs,
-                use_pallas,
                 pay_packed,
             )
         )

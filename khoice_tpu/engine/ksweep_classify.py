@@ -2,8 +2,8 @@
 
 engine/ksweep.py removes the per-k sort from exp1 by computing every k's
 occurrence histogram from ONE doubled-text forward-prefix sort.  The
-classification pipelines were still paying one sort per (k, dataset)
-(round-3 VERDICT): exp2 intersect/subtract histograms
+classification pipelines were still paying one sort per (k, dataset):
+exp2 intersect/subtract histograms
 (workflow/rules/exp_type_2.smk:354-380), exp3 containment percentages
 (exp_type_3.smk:281-320) and exp4 feature buckets
 (exp_type_4.smk:247-294 + src/merge_lists.py:134-149) each re-sorted the
@@ -25,13 +25,8 @@ SAME sorted run structure the sweep already builds:
   palindromic run's pivot multiplicity BEFORE saturation (a palindromic
   class's single run holds both strands' occurrences).
 
-On TPU the scans run as modes of the multi-k Pallas kernel
-(kernels/ksweep_scan_pallas.py: pivot_rest / multi_pivot / containment /
-buckets) — no per-k device temporaries, whole grid per call chain; the
-XLA fallbacks here serve CPU tests and small inputs, chunked to
-SCAN_KS_PER_CALL ks per program because compiling the whole unrolled
-grid (or holding its 32-bit per-element temporaries) broke the TPU
-compiler and HBM at realistic scale.
+Each scan loops over the class's ks inside one program (_scan_ks), so
+only one k's ~6 32-bit per-element temporaries are live at a time.
 """
 
 from __future__ import annotations
@@ -44,12 +39,9 @@ import jax.numpy as jnp
 import numpy as np
 
 from .ksweep import (
-    NIO_BITS,
-    PACK_GID_BITS,
-    PACK_NIO_BITS,
-    _extract_fwd_sweep,
-    _key_new_mask,
+    _prefix_differs,
     _pal_mask,
+    _payload_fields,
     _rev2comp_words,
     _seg_or_scan,
     _seg_sum_scan,
@@ -57,46 +49,49 @@ from .ksweep import (
 )
 
 
-def _per_k_runs(skeys, spayload, k, kmax, KW, packed, prev, rev, gid, nio,
-                with_pivot_sum=False, pivot_gid=0):
+def _per_k_runs(skeys, spayload, k, KW, packed, with_pivot_sum=False):
     """Per-element run quantities for one k over the shared sort.
 
     Returns (run_end, mask, pal, psum): run_end marks each run's last
-    element, mask/psum are the run totals (valid AT run_end), pal is the
-    palindrome flag of the run's key prefix."""
-    key_new = _key_new_mask(skeys, prev, k, KW).at[0].set(True)
+    element, mask/psum are the run totals (valid AT run_end; psum counts
+    the pivot's (member 0) elements), pal is the palindrome flag of the
+    run's key prefix (always False at odd k)."""
+    gid, nio = _payload_fields(skeys, spayload, packed)
+    prev = tuple(jnp.roll(w, 1) for w in skeys)
+    key_new = _prefix_differs(skeys, prev, k, KW).at[0].set(True)
     m = jnp.where(nio >= k, jnp.uint32(1) << gid, jnp.uint32(0))
     or_scan = _seg_or_scan(m, key_new)
     run_end = jnp.roll(key_new, -1).at[-1].set(True)
-    pal = _pal_mask(skeys, rev, k, KW) if k % 2 == 0 else None
+    pal = _pal_mask(skeys, _rev2comp_words(skeys), k, KW)
     psum = None
     if with_pivot_sum:
-        pm = jnp.where((nio >= k) & (gid == pivot_gid), jnp.uint32(1), jnp.uint32(0))
+        pm = jnp.where((nio >= k) & (gid == 0), jnp.uint32(1), jnp.uint32(0))
         psum = _seg_sum_scan(pm, key_new)
     return run_end, or_scan, pal, psum
 
 
-def _scan_prelude(skeys, spayload, packed):
-    prev = tuple(jnp.roll(w, 1) for w in skeys)
-    if packed:
-        gid = (skeys[-1] >> PACK_NIO_BITS) & jnp.uint32((1 << PACK_GID_BITS) - 1)
-        nio = skeys[-1] & jnp.uint32((1 << PACK_NIO_BITS) - 1)
-    else:
-        gid = (spayload >> NIO_BITS) & jnp.uint32(0xFF)
-        nio = spayload & jnp.uint32((1 << NIO_BITS) - 1)
-    rev = _rev2comp_words(skeys)
-    return prev, rev, gid, nio
+def _scan_ks(skeys, spay, ks, KW, packed, stats, raw, with_pivot_sum=False):
+    """Run a classification stat over every k of `ks` (one loop iteration
+    per k, so one compile serves the grid and one k's per-element
+    temporaries are live at a time).
 
+    stats(sel, mask, pal, psum) -> int32 array of one k's stat over the
+    runs whose last element is in `sel`; it is taken for all runs (d) and
+    for palindromic runs (p).  Returns the (2, len(ks), bins) stacked
+    (d, p) stats flattened per k when raw, else the canonical
+    (d + p) // 2 in stats' own shape, (len(ks), ...)."""
 
-def _canon(stat_d, stat_p):
-    return (stat_d + stat_p) // 2
+    def one_k(k):
+        run_end, orv, pal, psum = _per_k_runs(
+            skeys, spay, k, KW, packed, with_pivot_sum
+        )
+        return jnp.stack([stats(run_end, orv, pal, psum),
+                          stats(run_end & pal, orv, pal, psum)])
 
-
-# The XLA scans unroll per k; compiling the whole 30-point grid in one
-# program OOM-killed the AOT compile helper at realistic scale (exp2's
-# 30 x 9-bin graph hit ~200 KB of MLIR).  The sort is jitted once and
-# the scans consume it in chunks of at most this many ks per program.
-SCAN_KS_PER_CALL = 2
+    dp = jax.lax.map(one_k, jnp.asarray(ks, jnp.int32))  # (n_ks, 2, ...)
+    if raw:
+        return jnp.moveaxis(dp, 1, 0).reshape(2, len(ks), -1)
+    return (dp[:, 0] + dp[:, 1]) // 2
 
 
 @partial(jax.jit, static_argnums=(2, 3, 4))
@@ -106,14 +101,21 @@ def _sorted_doubled_fn(codes, gids, kmax, KW, packed):
     return _sweep_doubled(codes, gids, kmax, KW, packed)
 
 
+def _bin_counts(sel, occ, n_bins):
+    """[#elements of sel with occ == j for j in 0..n_bins-1] (int32)."""
+    return jnp.stack(
+        [jnp.sum((sel & (occ == j)).astype(jnp.int32)) for j in range(n_bins)]
+    )
+
+
 # --------------------------------------------------------------------------
 # exp2 within: pivot (bit 0) vs rest members (bits 1..n_rest)
 # --------------------------------------------------------------------------
 
 
-@partial(jax.jit, static_argnums=(2, 3, 4, 5, 6, 7, 8, 9))
+@partial(jax.jit, static_argnums=(2, 3, 4, 5, 6, 7, 8))
 def _sweep_class_pivot_rest(skeys, spay, ks, kmax, KW, n_rest, cs, packed,
-                            use_pallas=False, raw=False):
+                            raw=False):
     """(len(ks), n_rest+1) int32: [ki, j] = #canonical classes present in
     the pivot (member 0) and in exactly j of the rest members (1..n_rest).
 
@@ -125,42 +127,13 @@ def _sweep_class_pivot_rest(skeys, spay, ks, kmax, KW, n_rest, cs, packed,
     palindromic) counts WITHOUT the (d+p)//2 combine — the sharded sweep
     psums across shards first (a class's two strand runs can land in
     different shards; dist/ksweep_classify.py)."""
-    if use_pallas:
-        assert not raw
-        from ..kernels.ksweep_scan_pallas import scan_multi_k_pallas
-
-        return scan_multi_k_pallas(
-            skeys, spay, ks, kmax, KW, n_rest + 1, cs, packed=packed,
-            mode="pivot_rest", mode_params=n_rest,
-        )
-    prev, rev, gid, nio = _scan_prelude(skeys, spay, packed)
     rest_mask = jnp.uint32(((1 << (n_rest + 1)) - 1) & ~1)
 
-    d_rows, p_rows = [], []
-    for k in ks:
-        run_end, orv, pal, _ = _per_k_runs(
-            skeys, spay, k, kmax, KW, packed, prev, rev, gid, nio
-        )
-        sel = run_end & ((orv & 1) == 1)
+    def stats(sel, orv, pal, psum):
         occ = jax.lax.population_count(orv & rest_mask)
-        d = jnp.stack(
-            [jnp.sum((sel & (occ == j)).astype(jnp.int32)) for j in range(n_rest + 1)]
-        )
-        if k % 2 == 0:
-            selp = sel & pal
-            p = jnp.stack(
-                [
-                    jnp.sum((selp & (occ == j)).astype(jnp.int32))
-                    for j in range(n_rest + 1)
-                ]
-            )
-        else:
-            p = jnp.zeros((n_rest + 1,), jnp.int32)
-        d_rows.append(d)
-        p_rows.append(p)
-    if raw:
-        return jnp.stack([jnp.stack(d_rows), jnp.stack(p_rows)])
-    return jnp.stack([_canon(d, p) for d, p in zip(d_rows, p_rows)])
+        return _bin_counts(sel & ((orv & 1) == 1), occ, n_rest + 1)
+
+    return _scan_ks(skeys, spay, ks, KW, packed, stats, raw)
 
 
 # --------------------------------------------------------------------------
@@ -168,58 +141,25 @@ def _sweep_class_pivot_rest(skeys, spay, ks, kmax, KW, n_rest, cs, packed,
 # --------------------------------------------------------------------------
 
 
-@partial(jax.jit, static_argnums=(2, 3, 4, 5, 6, 7, 8, 9))
+@partial(jax.jit, static_argnums=(2, 3, 4, 5, 6, 7, 8))
 def _sweep_class_multi_pivot(skeys, spay, ks, kmax, KW, D, cs, packed,
-                             use_pallas=False, raw=False):
+                             raw=False):
     """(len(ks), D, D) int32: [ki, num, j] = #canonical classes present in
     pivot `num` and in exactly j of the OTHER datasets' group sets
     (pivot num's own group excluded, exp_type_2.smk:263-283).
 
     raw=True returns (2, len(ks), D*D) stacked (doubled, palindromic)
     counts, flattened, without the (d+p)//2 combine (sharded sweep)."""
-    if use_pallas:
-        assert not raw
-        from ..kernels.ksweep_scan_pallas import scan_multi_k_pallas
 
-        flat = scan_multi_k_pallas(
-            skeys, spay, ks, kmax, KW, 2 * D, cs, packed=packed,
-            mode="multi_pivot", mode_params=D,
-        )
-        return flat.reshape(len(ks), D, D)
-    prev, rev, gid, nio = _scan_prelude(skeys, spay, packed)
-
-    d_rows, p_rows = [], []
-    for k in ks:
-        run_end, orv, pal, _ = _per_k_runs(
-            skeys, spay, k, kmax, KW, packed, prev, rev, gid, nio
-        )
-        per_num_d, per_num_p = [], []
+    def stats(sel, orv, pal, psum):
+        rows = []
         for num in range(D):
-            sel = run_end & (((orv >> num) & 1) == 1)
             others = jnp.uint32(((1 << D) - 1) & ~(1 << num)) << D
             occ = jax.lax.population_count(orv & others)
-            d = jnp.stack(
-                [jnp.sum((sel & (occ == j)).astype(jnp.int32)) for j in range(D)]
-            )
-            if k % 2 == 0:
-                selp = sel & pal
-                p = jnp.stack(
-                    [jnp.sum((selp & (occ == j)).astype(jnp.int32)) for j in range(D)]
-                )
-            else:
-                p = jnp.zeros((D,), jnp.int32)
-            per_num_d.append(d)
-            per_num_p.append(p)
-        d_rows.append(jnp.stack(per_num_d))
-        p_rows.append(jnp.stack(per_num_p))
-    if raw:
-        return jnp.stack(
-            [
-                jnp.stack(d_rows).reshape(len(ks), D * D),
-                jnp.stack(p_rows).reshape(len(ks), D * D),
-            ]
-        )
-    return jnp.stack([_canon(d, p) for d, p in zip(d_rows, p_rows)])
+            rows.append(_bin_counts(sel & (((orv >> num) & 1) == 1), occ, D))
+        return jnp.stack(rows)
+
+    return _scan_ks(skeys, spay, ks, KW, packed, stats, raw)
 
 
 # --------------------------------------------------------------------------
@@ -227,9 +167,9 @@ def _sweep_class_multi_pivot(skeys, spay, ks, kmax, KW, D, cs, packed,
 # --------------------------------------------------------------------------
 
 
-@partial(jax.jit, static_argnums=(2, 3, 4, 5, 6, 7, 8, 9, 10))
+@partial(jax.jit, static_argnums=(2, 3, 4, 5, 6, 7, 8, 9))
 def _sweep_class_containment(skeys, spay, ks, kmax, KW, nq, ng, cs, packed,
-                             use_pallas=False, raw=False):
+                             raw=False):
     """(len(ks), nq, ng+1) int32: [ki, q, 0] = #canonical classes in query
     set q (the |distinct(reads)| denominator); [ki, q, 1+g] = #classes in
     query q AND group g (the intersection numerator)
@@ -237,51 +177,19 @@ def _sweep_class_containment(skeys, spay, ks, kmax, KW, nq, ng, cs, packed,
 
     raw=True returns (2, len(ks), nq*(ng+1)) stacked (doubled,
     palindromic) counts, flattened, without the combine (sharded sweep)."""
-    if use_pallas:
-        assert not raw
-        from ..kernels.ksweep_scan_pallas import scan_multi_k_pallas
 
-        flat = scan_multi_k_pallas(
-            skeys, spay, ks, kmax, KW, nq + ng, cs, packed=packed,
-            mode="containment", mode_params=(nq, ng),
-        )
-        return flat.reshape(len(ks), nq, ng + 1)
-    prev, rev, gid, nio = _scan_prelude(skeys, spay, packed)
-
-    d_rows, p_rows = [], []
-    for k in ks:
-        run_end, orv, pal, _ = _per_k_runs(
-            skeys, spay, k, kmax, KW, packed, prev, rev, gid, nio
-        )
-        per_q_d, per_q_p = [], []
+    def stats(sel, orv, pal, psum):
+        rows = []
         for q in range(nq):
-            inq = run_end & (((orv >> q) & 1) == 1)
+            inq = sel & (((orv >> q) & 1) == 1)
             cells = [jnp.sum(inq.astype(jnp.int32))]
             for g in range(ng):
                 both = inq & (((orv >> (nq + g)) & 1) == 1)
                 cells.append(jnp.sum(both.astype(jnp.int32)))
-            d = jnp.stack(cells)
-            if k % 2 == 0:
-                inqp = inq & pal
-                cells = [jnp.sum(inqp.astype(jnp.int32))]
-                for g in range(ng):
-                    both = inqp & (((orv >> (nq + g)) & 1) == 1)
-                    cells.append(jnp.sum(both.astype(jnp.int32)))
-                p = jnp.stack(cells)
-            else:
-                p = jnp.zeros((ng + 1,), jnp.int32)
-            per_q_d.append(d)
-            per_q_p.append(p)
-        d_rows.append(jnp.stack(per_q_d))
-        p_rows.append(jnp.stack(per_q_p))
-    if raw:
-        return jnp.stack(
-            [
-                jnp.stack(d_rows).reshape(len(ks), nq * (ng + 1)),
-                jnp.stack(p_rows).reshape(len(ks), nq * (ng + 1)),
-            ]
-        )
-    return jnp.stack([_canon(d, p) for d, p in zip(d_rows, p_rows)])
+            rows.append(jnp.stack(cells))
+        return jnp.stack(rows)
+
+    return _scan_ks(skeys, spay, ks, KW, packed, stats, raw)
 
 
 # --------------------------------------------------------------------------
@@ -289,9 +197,9 @@ def _sweep_class_containment(skeys, spay, ks, kmax, KW, nq, ng, cs, packed,
 # --------------------------------------------------------------------------
 
 
-@partial(jax.jit, static_argnums=(2, 3, 4, 5, 6, 7, 8, 9, 10))
+@partial(jax.jit, static_argnums=(2, 3, 4, 5, 6, 7, 8, 9))
 def _sweep_class_feature_buckets(skeys, spay, ks, kmax, KW, D, cs, cap, packed,
-                                 use_pallas=False, raw=False):
+                                 raw=False):
     """exp4 feature buckets for every k of a class in one sort.
 
     Returns (buckets (len(ks), D, D) int32, unique (len(ks),) int32):
@@ -307,69 +215,27 @@ def _sweep_class_feature_buckets(skeys, spay, ks, kmax, KW, D, cs, cap, packed,
     unique appended — of (doubled, palindromic) sums without the combine
     (per-run saturation/pal-halving stay exact under sharding because a
     run never tears across shards; dist/ksweep_classify.py)."""
-    if use_pallas:
-        assert not raw
-        from ..kernels.ksweep_scan_pallas import scan_multi_k_pallas
 
-        flat = scan_multi_k_pallas(
-            skeys, spay, ks, kmax, KW, D + 1, cs, packed=packed,
-            mode="buckets", mode_params=(D, cap),
-        )
-        return flat[:, : D * D].reshape(len(ks), D, D), flat[:, D * D]
-    prev, rev, gid, nio = _scan_prelude(skeys, spay, packed)
-
-    b_rows, u_rows = [], []
-    bp_rows, up_rows = [], []
-    for k in ks:
-        run_end, orv, pal, psum = _per_k_runs(
-            skeys, spay, k, kmax, KW, packed, prev, rev, gid, nio,
-            with_pivot_sum=True,
-        )
-        present = run_end & (((orv >> 0) & 1) == 1)
-        if k % 2 == 0:
-            c = jnp.where(pal, psum >> 1, psum)
-        else:
-            c = psum
+    def stats(sel, orv, pal, psum):
+        present = sel & ((orv & 1) == 1)
+        c = jnp.where(pal, psum >> 1, psum)
         c = jnp.minimum(c, jnp.uint32(cap)).astype(jnp.int32)
         gmask = orv >> 1  # dataset bits
         nmatch = jax.lax.population_count(gmask & jnp.uint32((1 << D) - 1))
+        cells = []
+        for dd in range(D):
+            in_d = ((gmask >> dd) & 1) == 1
+            for m in range(1, D + 1):
+                s = present & in_d & (nmatch == m)
+                cells.append(jnp.sum(jnp.where(s, c, 0)))
+        cells.append(jnp.sum(jnp.where(present & (nmatch == 0), c, 0)))
+        return jnp.stack(cells)
 
-        def stats(sel):
-            uniq = jnp.sum(jnp.where(sel & (nmatch == 0), c, 0))
-            buckets = []
-            for dd in range(D):
-                in_d = ((gmask >> dd) & 1) == 1
-                row = []
-                for m in range(1, D + 1):
-                    s = sel & in_d & (nmatch == m)
-                    row.append(jnp.sum(jnp.where(s, c, 0)))
-                buckets.append(jnp.stack(row))
-            return jnp.stack(buckets), uniq
-
-        bd, ud = stats(present)
-        if k % 2 == 0:
-            bp, up = stats(present & pal)
-        else:
-            bp = jnp.zeros((D, D), jnp.int32)
-            up = jnp.int32(0)
-        b_rows.append(bd)
-        u_rows.append(ud)
-        bp_rows.append(bp)
-        up_rows.append(up)
+    flat = _scan_ks(skeys, spay, ks, KW, packed, stats, raw,
+                    with_pivot_sum=True)
     if raw:
-        flat_d = jnp.concatenate(
-            [jnp.stack(b_rows).reshape(len(ks), D * D),
-             jnp.stack(u_rows).reshape(len(ks), 1)], axis=1
-        )
-        flat_p = jnp.concatenate(
-            [jnp.stack(bp_rows).reshape(len(ks), D * D),
-             jnp.stack(up_rows).reshape(len(ks), 1)], axis=1
-        )
-        return jnp.stack([flat_d, flat_p])
-    return (
-        jnp.stack([_canon(d, p) for d, p in zip(b_rows, bp_rows)]),
-        jnp.stack([_canon(d, p) for d, p in zip(u_rows, up_rows)]),
-    )
+        return flat
+    return flat[:, : D * D].reshape(len(ks), D, D), flat[:, D * D]
 
 
 def classify_scan_raw(skeys, spay, ks, kmax, KW, cs, packed, mode, mode_params):
@@ -379,21 +245,21 @@ def classify_scan_raw(skeys, spay, ks, kmax, KW, cs, packed, mode, mode_params):
     ks = tuple(int(k) for k in ks)
     if mode == "pivot_rest":
         return _sweep_class_pivot_rest(
-            skeys, spay, ks, kmax, KW, mode_params, cs, packed, False, True
+            skeys, spay, ks, kmax, KW, mode_params, cs, packed, True
         )
     if mode == "multi_pivot":
         return _sweep_class_multi_pivot(
-            skeys, spay, ks, kmax, KW, mode_params, cs, packed, False, True
+            skeys, spay, ks, kmax, KW, mode_params, cs, packed, True
         )
     if mode == "containment":
         nq, ng = mode_params
         return _sweep_class_containment(
-            skeys, spay, ks, kmax, KW, nq, ng, cs, packed, False, True
+            skeys, spay, ks, kmax, KW, nq, ng, cs, packed, True
         )
     if mode == "buckets":
         D, cap = mode_params
         return _sweep_class_feature_buckets(
-            skeys, spay, ks, kmax, KW, D, cs, cap, packed, False, True
+            skeys, spay, ks, kmax, KW, D, cs, cap, packed, True
         )
     raise ValueError(f"unknown classify mode {mode!r}")
 
@@ -418,68 +284,41 @@ def classify_mode_bins(mode: str, mode_params) -> int:
 # --------------------------------------------------------------------------
 
 
-def _classify_pallas_ok(n2: int, n_members: int, out_bins: int) -> bool:
-    from ..kernels.ksweep_scan_pallas import BINS_PAD, TILE
-    from .occurrence import compute_on_tpu
-
-    return (
-        n2 % TILE == 0 and n_members <= 32 and out_bins <= BINS_PAD
-        and compute_on_tpu()
-    )
-
-
-def _xla_scan_too_big(n2: int, budget_fraction: float = 0.35) -> bool:
-    """True when the XLA classify scan's ~6 u32 temporaries per element
-    would overrun device memory next to the live sorted arrays."""
-    from .occurrence import compute_on_tpu
-
-    if not compute_on_tpu():
-        return False
-    try:
-        import jax
-
-        limit = jax.devices()[0].memory_stats().get("bytes_limit", 16 << 30)
-    except Exception:
-        limit = 16 << 30
-    return n2 * 6 * 4 > limit * budget_fraction
+def _scan_too_big(n2: int, device, budget_fraction: float = 0.35) -> bool:
+    """True when the classify scan's ~6 u32 temporaries per element would
+    overrun `device`'s memory next to the live sorted arrays.  A device
+    that reports no memory limit (the CPU) never refuses."""
+    limit = (device.memory_stats() or {}).get("bytes_limit", 0)
+    return bool(limit) and n2 * 6 * 4 > limit * budget_fraction
 
 
 def _run_classes(member_codes: Sequence[np.ndarray], ks: Sequence[int],
-                 class_fn, n_mask_members: int, out_bins: int
-                 ) -> Tuple[Dict[int, np.ndarray], List[int]]:
+                 class_fn) -> Tuple[Dict[int, object], List[int]]:
     """Shared driver: pack members once, sort ONCE per planned class
     (the sorted arrays stay on device), then run
-    `class_fn(skeys, spay, cks, kmax, KW, packed)` over ks chunks of
-    SCAN_KS_PER_CALL so no single XLA program unrolls the whole grid.
-    Returns ({k: host stats}, leftover ks for the per-k fallback)."""
+    `class_fn(skeys, spay, cks, kmax, KW, packed)` -> [per-k host stats]
+    over the class's ks.  Returns ({k: host stats}, leftover ks for the
+    per-k fallback)."""
     from .occurrence import pack_members
 
-    n_members = len(member_codes)
-    classes, remaining = plan_sweep(ks, n_members)
-    out: Dict[int, np.ndarray] = {}
-    if classes:
-        codes, gids = pack_members(member_codes)
-        n2 = 2 * int(codes.shape[0])
-        use_pallas = _classify_pallas_ok(n2, n_mask_members, out_bins)
-        if not use_pallas and _xla_scan_too_big(n2):
-            # on-TPU XLA scan would OOM next to the sorted arrays and the
-            # Pallas gate refused (odd tile size / too many bins) — let
-            # the per-k fallback handle every k instead
-            return {}, sorted(set(int(k) for k in ks))
-        # the Pallas scan holds no per-k device temporaries, so the whole
-        # grid fits one call chain; the XLA fallback chunks tightly (its
-        # per-k 32-bit temps at realistic scale are what OOMed the chip)
-        step = len(ks) if use_pallas else SCAN_KS_PER_CALL
-        cj, gj = jnp.asarray(codes), jnp.asarray(gids)
-        for kmax, KW, cks, packed in classes:
-            skeys, spay = _sorted_doubled_fn(cj, gj, kmax, KW, packed)
-            for i0 in range(0, len(cks), step):
-                chunk = cks[i0 : i0 + step]
-                stats = np.asarray(
-                    class_fn(skeys, spay, chunk, kmax, KW, packed, use_pallas)
-                )
-                for i, k in enumerate(chunk):
-                    out[k] = stats[i]
+    classes, remaining = plan_sweep(ks, len(member_codes))
+    out: Dict[int, object] = {}
+    if not classes:
+        return out, remaining
+    codes, gids = pack_members(member_codes)
+    cj, gj = jnp.asarray(codes), jnp.asarray(gids)
+    n2 = 2 * int(codes.shape[0])
+    if _scan_too_big(n2, next(iter(cj.devices()))):
+        from ..utils.logging import get_logger
+
+        get_logger("khoice.ksweep_classify").warning(
+            "classify sweep: %dM doubled elements exceed the scan's "
+            "device-memory envelope; using the per-k path", n2 // 1_000_000,
+        )
+        return {}, sorted(set(int(k) for k in ks))
+    for kmax, KW, cks, packed in classes:
+        skeys, spay = _sorted_doubled_fn(cj, gj, kmax, KW, packed)
+        out.update(zip(cks, class_fn(skeys, spay, cks, kmax, KW, packed)))
     return out, remaining
 
 
@@ -496,11 +335,9 @@ def pivot_rest_counts_sweep(
     return _run_classes(
         member_codes,
         ks,
-        lambda sk, sp, cks, kmax, KW, packed, up: _sweep_class_pivot_rest(
-            sk, sp, cks, kmax, KW, n_rest, cs, packed, up
-        ),
-        n_rest + 1,
-        n_rest + 1,
+        lambda sk, sp, cks, kmax, KW, packed: list(np.asarray(
+            _sweep_class_pivot_rest(sk, sp, cks, kmax, KW, n_rest, cs, packed)
+        )),
     )
 
 
@@ -512,11 +349,9 @@ def multi_pivot_counts_sweep(
     return _run_classes(
         member_codes,
         ks,
-        lambda sk, sp, cks, kmax, KW, packed, up: _sweep_class_multi_pivot(
-            sk, sp, cks, kmax, KW, D, cs, packed, up
-        ),
-        2 * D,
-        D * D,
+        lambda sk, sp, cks, kmax, KW, packed: list(np.asarray(
+            _sweep_class_multi_pivot(sk, sp, cks, kmax, KW, D, cs, packed)
+        )),
     )
 
 
@@ -529,11 +364,9 @@ def containment_counts_sweep(
     return _run_classes(
         member_codes,
         ks,
-        lambda sk, sp, cks, kmax, KW, packed, up: _sweep_class_containment(
-            sk, sp, cks, kmax, KW, nq, ng, cs, packed, up
-        ),
-        nq + ng,
-        nq * (ng + 1),
+        lambda sk, sp, cks, kmax, KW, packed: list(np.asarray(
+            _sweep_class_containment(sk, sp, cks, kmax, KW, nq, ng, cs, packed)
+        )),
     )
 
 
@@ -542,40 +375,11 @@ def feature_buckets_sweep(
     cap: int = 255, cs: int = 5000
 ) -> Tuple[Dict[int, tuple], List[int]]:
     """{k: (buckets (D, D) int64, unique int)}: member 0 pivot, 1..D groups."""
-    from .occurrence import pack_members
+    assert cs >= len(member_codes), "sweep ignores cs below the member count"
 
-    n_members = len(member_codes)
-    assert cs >= n_members, "sweep ignores cs below the member count"
-    classes, remaining = plan_sweep(ks, n_members)
-    out: Dict[int, tuple] = {}
-    if classes:
-        codes, gids = pack_members(member_codes)
-        n2 = 2 * int(codes.shape[0])
-        # Pallas "buckets" mode: the saturating 16-bit sum channel needs
-        # cap <= 511 (pal halving happens before saturation at 1023)
-        use_pallas = (
-            _classify_pallas_ok(n2, D + 1, D * D + 1) and cap <= 511
-        )
-        if not use_pallas and _xla_scan_too_big(n2):
-            from ..utils.logging import get_logger
+    def class_fn(sk, sp, cks, kmax, KW, packed):
+        b, u = _sweep_class_feature_buckets(sk, sp, cks, kmax, KW, D, cs, cap, packed)
+        b, u = np.asarray(b), np.asarray(u)
+        return [(b[i].astype(np.int64), int(u[i])) for i in range(len(cks))]
 
-            get_logger("khoice.ksweep_classify").warning(
-                "exp4 sweep: %dM doubled elements exceed the XLA scan's "
-                "device-memory envelope and the Pallas gate refused; "
-                "using the per-k annotation path", n2 // 1_000_000,
-            )
-            return {}, sorted(set(int(k) for k in ks))
-        step = len(ks) if use_pallas else SCAN_KS_PER_CALL
-        cj, gj = jnp.asarray(codes), jnp.asarray(gids)
-        for kmax, KW, cks, packed in classes:
-            skeys, spay = _sorted_doubled_fn(cj, gj, kmax, KW, packed)
-            for i0 in range(0, len(cks), step):
-                chunk = cks[i0 : i0 + step]
-                b, u = _sweep_class_feature_buckets(
-                    skeys, spay, chunk, kmax, KW, D, cs, cap, packed,
-                    use_pallas,
-                )
-                b, u = np.asarray(b), np.asarray(u)
-                for i, k in enumerate(chunk):
-                    out[k] = (b[i].astype(np.int64), int(u[i]))
-    return out, remaining
+    return _run_classes(member_codes, ks, class_fn)

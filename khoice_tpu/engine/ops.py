@@ -66,8 +66,8 @@ def _run_starts(keys: tuple):
 
 def _run_sums(counts: jnp.ndarray, is_new: jnp.ndarray) -> jnp.ndarray:
     """Segment sums of a sorted run structure, written at each run's FIRST
-    slot (0 elsewhere). Gather/scatter-free: TPU gathers at ~16M indices cost
-    ~100x a cumsum, so this uses the monotonicity of inclusive prefix sums:
+    slot (0 elsewhere). Gather/scatter-free: it uses the monotonicity of
+    inclusive prefix sums:
     the s-value at MY run's end is the reverse-cummin of s masked to
     run-last slots. Exact in modular uint32 as long as each run's true sum
     < 2^32 (always holds: per-key counts are capped at <=10000 per input).
@@ -132,8 +132,8 @@ def _merge_two(a: KmerTable, b: KmerTable):
     """Merge a and b into one sorted run structure with per-side run sums.
 
     Returns (keys, a_sum, b_sum) where *_sum carry each side's count at the
-    run's first slot. Merge-by-sort beats per-key binary search on TPU: one
-    unstable variadic sort vs log(C) serialized gathers.
+    run's first slot. Merge-by-sort: one unstable variadic sort instead of
+    log(C) dependent gathers per key.
     """
     w = a.n_words
     keys = tuple(jnp.concatenate([a.keys[i], b.keys[i]]) for i in range(w))
@@ -168,7 +168,7 @@ def histogram(t: KmerTable, cx: int = 10000) -> jnp.ndarray:
     """Occurrence histogram: out[i-1] = #present keys with count i, i=1..cx.
 
     Computed by sorting the (small-dtype, single-word) counts and binary
-    searching the cx bin edges — no scatter, TPU-friendly.
+    searching the cx bin edges — no scatter.
     """
     counts = jnp.minimum(t.counts, jnp.uint32(cx + 1))
     sorted_counts = jax.lax.sort(counts)

@@ -1,12 +1,13 @@
-"""Bounded-memory (streaming) k-sweep — the KMC `-m64` role on a chip.
+"""Bounded-memory (streaming) k-sweep — the KMC `-m64` role on a device.
 
 KMC's defining property is counting arbitrarily large inputs on a fixed
 memory budget: the reference hands it 64 GB and streams whole genome
 groups (`kmc -fm -m64`, workflow/rules/exp_type_1.smk:163), spilling
 prefix-partitioned bins to disk.  The master sweep (engine/ksweep.py)
-materializes the whole doubled text's sort on one chip (~16-20 B per
-text position at KW=4 plus sort workspace), which dies past ~HBM/40
-positions.  This module runs the SAME sweep under a device byte budget:
+materializes the whole doubled text's sort on one device (~16-20 B per
+text position at KW=4 plus sort workspace), which dies past ~1/40 of
+device memory in positions.  This module runs the SAME sweep under a
+device byte budget:
 
 - the 2-bit-packed doubled text is tiny (1 B/position as uint8 codes)
   and stays RESIDENT on the device; only the 16 B/position sort
@@ -15,11 +16,11 @@ positions.  This module runs the SAME sweep under a device byte budget:
   2*kmin-bit prefixes (no k-run of any swept k tears across groups —
   the same invariant as dist/ksweep.py's shard splits; KMC's own 4^p
   disk bins are the CPU ancestor of this partition);
-- per pass, for each text chunk: extract + sentinel-encode + fast_sort
-  the chunk, then searchsorted-slice each in-range group's elements
-  into that group's fixed-cap device buffer (slices of a sorted chunk
-  are contiguous — no scatter, which TPUs price at ~9 ns/element);
-- per group: one fast_sort of the buffer + the multi-k occurrence scan
+- per pass, for each text chunk: extract + sentinel-encode + sort the
+  chunk, then searchsorted-slice each in-range group's elements into
+  that group's fixed-cap device buffer (slices of a sorted chunk are
+  contiguous, so the copy is a gather of one range per group);
+- per group: one sort of the buffer + the multi-k occurrence scan
   in RAW (doubled, palindromic) form, accumulated across groups and
   halved at the end — a canonical class's two strand runs can land in
   different key ranges, exactly as in the sharded sweep;
@@ -45,12 +46,11 @@ import numpy as np
 
 from ..utils.logging import get_logger
 from .ksweep import (
-    MASK_MEMBERS_PALLAS,
-    MASK_MEMBERS_XLA,
+    MASK_MEMBERS_OCC,
     PACK_GID_BITS,
     PACK_NIO_BITS,
     _extract_fwd_sweep,
-    _scan_multi_k_xla,
+    _scan_multi_k,
     plan_sweep,
 )
 
@@ -59,6 +59,26 @@ log = get_logger("khoice.streaming")
 _SENT_LAST_PACKED = np.uint32(
     0xFFFFFFFF & ~((1 << (PACK_GID_BITS + PACK_NIO_BITS)) - 1)
 )
+
+
+def sentinel_encode_packed(fwd: tuple, KW: int, nio_bits: int, gid_bits: int):
+    """Re-encode invalid packed elements (nio == 0: N positions, record
+    separators, tail padding) to the dominant sentinel: all-ones key
+    words, ZERO payload bits in the last word.
+
+    The sentinel sorts strictly after EVERY real element: the last word's
+    spare-above-payload bits (>= 2 of them, since packing requires
+    spare >= PACK_MIN_SPARE = 14 > the 12 payload bits) are ones in the
+    sentinel but zero in every real element.  The occurrence scans are
+    unaffected (the sentinel's nio bits stay 0).  Returns
+    (encoded, invalid_mask)."""
+    pay_mask = jnp.uint32((1 << (nio_bits + gid_bits)) - 1)
+    invalid = (fwd[-1] & jnp.uint32((1 << nio_bits) - 1)) == 0
+    out = []
+    for i, w in enumerate(fwd):
+        sent = (jnp.uint32(0xFFFFFFFF) & ~pay_mask) if i == KW - 1 else jnp.uint32(0xFFFFFFFF)
+        out.append(jnp.where(invalid, sent, w))
+    return tuple(out), invalid
 
 
 def default_device_budget_bytes() -> int:
@@ -90,7 +110,7 @@ def incore_sweep_bytes(
     input + output).  Used by run_exp1 to dispatch groups beyond the
     device budget to the streaming path automatically — the user never
     chooses, exactly as with KMC's -m64."""
-    classes, _rem = plan_sweep(ks, n_members, MASK_MEMBERS_XLA)
+    classes, _rem = plan_sweep(ks, n_members, MASK_MEMBERS_OCC)
     n2 = 2 * total_positions
     worst = 0
     for kmax, KW, _cks, packed in classes:
@@ -124,8 +144,6 @@ def _chunk_step(d_codes, member_starts, bufs, n, c, C, H, kmax, KW, cap, R, lo, 
     bufs: (R, n_chunks*cap) per key word (NOT donated — see NOTE above);
     lo/hi: (R,) inclusive w0 ranges.  Returns (bufs, per-group in-range
     counts (R,))."""
-    from .fastsort import fast_sort, sentinel_encode_packed
-
     start = c * C
     slab = jax.lax.dynamic_slice(d_codes, (start,), (C + H,))
     pos = start + jnp.arange(C + H, dtype=jnp.int32)
@@ -148,7 +166,7 @@ def _chunk_step(d_codes, member_starts, bufs, n, c, C, H, kmax, KW, cap, R, lo, 
         )
         for i, w in enumerate(elems)
     )
-    s = fast_sort(elems, KW, is_sentinel=drop)
+    s = jax.lax.sort(list(elems), num_keys=KW, is_stable=False)
 
     counts = []
     new_bufs = []
@@ -182,20 +200,11 @@ def _chunk_step(d_codes, member_starts, bufs, n, c, C, H, kmax, KW, cap, R, lo, 
     return tuple(new_bufs), jnp.stack(counts)
 
 
-@partial(jax.jit, static_argnums=(1, 2, 3, 4, 5, 6))
-def _group_scan(bufs_kw, ks, kmax, KW, n_members, cs, use_pallas):
+@partial(jax.jit, static_argnums=(1, 2, 3, 4, 5))
+def _group_scan(bufs_kw, ks, kmax, KW, n_members, cs):
     """Sort one group buffer and return its RAW (2, n_ks, n_members)."""
-    from .fastsort import fast_sort
-
-    nio = bufs_kw[KW - 1] & jnp.uint32((1 << PACK_NIO_BITS) - 1)
-    s = fast_sort(tuple(bufs_kw), KW, is_sentinel=nio == 0)
-    if use_pallas:
-        from ..kernels.ksweep_scan_pallas import scan_multi_k_pallas
-
-        return scan_multi_k_pallas(
-            s, None, ks, kmax, KW, n_members, cs, packed=True, raw=True
-        )
-    return _scan_multi_k_xla(
+    s = tuple(jax.lax.sort(list(bufs_kw), num_keys=KW, is_stable=False))
+    return _scan_multi_k(
         s, None, ks, kmax, KW, n_members, cs, packed=True, raw=True
     )
 
@@ -236,14 +245,13 @@ def occurrence_histograms_sweep_streaming(
     classes stream (the practical case: any grid with >= 3 ks packs);
     leftover ks fall back to the per-k fused path, which is small per k.
     """
-    from .occurrence import compute_on_tpu, occurrence_histogram_packed, pack_members
-    from ..kernels.ksweep_scan_pallas import TILE
+    from .occurrence import occurrence_histogram_packed, pack_members
 
     n_members = len(member_codes)
     assert n_members <= (1 << PACK_GID_BITS), (
         f"packed gid field is {PACK_GID_BITS} bits"
     )
-    classes, remaining = plan_sweep(ks, n_members, MASK_MEMBERS_XLA)
+    classes, remaining = plan_sweep(ks, n_members, MASK_MEMBERS_OCC)
     out: Dict[int, List[int]] = {}
 
     for kmax, KW, cks, packed in classes:
@@ -253,8 +261,7 @@ def occurrence_histograms_sweep_streaming(
         H = kmax - 1
         E = KW * 4
         total = 2 * sum(int(np.asarray(m).shape[0]) + 1 for m in member_codes)
-        C = chunk_elems or max(TILE, min(total, (device_budget_bytes // 8) // E))
-        C = max(TILE, (C // TILE) * TILE)
+        C = max(1, chunk_elems or min(total, (device_budget_bytes // 8) // E))
         G = n_groups or max(1, math.ceil((total * E * 4) / device_budget_bytes))
         R = pass_groups or max(1, min(G, max(1, device_budget_bytes // (4 * E * max(1, int(slack * total / G))))))
         kmin = min(cks)
@@ -263,11 +270,7 @@ def occurrence_histograms_sweep_streaming(
         splits = _group_splits(G, kmin)
 
         d, starts, n, n_chunks = _doubled_codes(member_codes, C, H)
-        cap = int(slack * C / G)
-        cap = max(TILE // n_chunks if n_chunks <= TILE else 1, cap)
-        # keep each group buffer a TILE multiple for the Pallas scan
-        while (n_chunks * cap) % TILE:
-            cap += 1
+        cap = max(1, int(slack * C / G))
 
         log.info(
             "streaming class kmax=%d: %d chunks x %dM elems, %d groups "
@@ -277,7 +280,6 @@ def occurrence_histograms_sweep_streaming(
 
         dj = jax.device_put(d)
         sj = jax.device_put(jnp.asarray(starts))
-        use_pallas = compute_on_tpu() and n_members <= MASK_MEMBERS_PALLAS
 
         # Overflow recovery is CONTAINED: a key-range group whose buffer
         # cap overflows (key-space skew, e.g. long poly-A) is re-queued
@@ -322,15 +324,13 @@ def occurrence_histograms_sweep_streaming(
                         continue
                     raw = _group_scan(
                         tuple(bufs[r * KW : (r + 1) * KW]),
-                        cks, kmax, KW, n_members, cs, use_pallas,
+                        cks, kmax, KW, n_members, cs,
                     )
                     dp += np.asarray(raw)
                 overflowed.extend(batch[r] for r in range(r_here) if over[r])
             todo = overflowed
             if todo:
                 round_cap *= 2
-                while (n_chunks * round_cap) % TILE:
-                    round_cap += 1
                 log.warning(
                     "streaming class kmax=%d: %d/%d key-range groups "
                     "overflowed their cap (skewed key space at kmin=%d "

@@ -9,7 +9,7 @@ static-shape JAX pytree:
 - ``counts``: uint32 [capacity]. A key is *present* iff count > 0, and a
   present key's count lives at its FIRST slot (lower_bound finds it).
   count==0 elsewhere (duplicate slots, deletions, sentinels). Run form is
-  scatter-free — TPU scatters serialize, so dedupe never compacts on device.
+  scatter-free: dedupe never compacts on device.
 - ``k``: static aux data.
 
 All engine ops preserve this invariant, which makes binary search, merges

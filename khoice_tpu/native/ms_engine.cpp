@@ -3,7 +3,7 @@
 // Plays the role of the reference's external SPUMONI + r-index binaries
 // (matching statistics per base, reference exp_type_5.smk:115-133; MEM
 // locate with one best hit, exp_type_7.smk:244-256). FM/r-index queries are
-// pointer-chasing and not TPU-shaped (SURVEY.md section 7.2), so this stays
+// pointer-chasing, not data-parallel (SURVEY.md section 7.2), so this stays
 // a native CPU component, exposed to Python over a C ABI via ctypes.
 //
 // Index: plain suffix array via prefix-doubling with radix sort
@@ -110,8 +110,7 @@ static int64_t longest_prefix(const Index& ix, const uint8_t* q, int64_t m,
 // ---------------------------------------------------------------------------
 // Batch matching statistics via a generalized suffix array (int32 alphabet).
 //
-// Per-position restart queries are O(ms_i * log n) EACH (the round-1 engine,
-// VERDICT item 6); for SPUMONI's real workload (GB-scale fwd+rc text,
+// Per-position restart queries are O(ms_i * log n) EACH; for SPUMONI's real workload (GB-scale fwd+rc text,
 // 10k reads per run, exp_type_5.smk:115-133) that is hours.  Instead, ONE
 // suffix array over  text ++ sep ++ read_0 ++ sep ++ read_1 ...  with a
 // UNIQUE separator symbol per boundary (so no LCP can cross a boundary),

@@ -1,6 +1,6 @@
 """Experiment 1: whole-group k-mer uniqueness (the north-star path).
 
-TPU-native replacement for the reference's exp_type_1 Snakemake DAG
+Device replacement for the reference's exp_type_1 Snakemake DAG
 (workflow/rules/exp_type_1.smk:156-308):
 
   per (k, group): per-genome canonical count -> set_counts 1 ->
@@ -70,7 +70,7 @@ def run_exp1(
 
     A group whose in-core sweep footprint exceeds `device_budget_bytes`
     (default: engine/streaming.default_device_budget_bytes — ~85% of the
-    accelerator's HBM) is dispatched to the bounded-memory streaming
+    accelerator's memory) is dispatched to the bounded-memory streaming
     sweep automatically, the way `kmc -m64` bounds itself without the
     user choosing (reference exp_type_1.smk:163).
 

@@ -100,7 +100,7 @@ def run_exp4(
     group_codes = [
         encode_records([s for g in rest_of_set[num] for s in g]) for num in nums
     ]
-    # The sweep's device-memory fallback (_xla_scan_too_big) is data-dependent
+    # The sweep's device-memory fallback (_scan_too_big) is data-dependent
     # on each pivot's size (n2 includes the pivot text), so one pivot can fall
     # back for a k that another pivot swept fine: the fallback decision must be
     # per (num, k), not a global k set.

@@ -95,8 +95,8 @@ def run_exp6(
     # ~85% of the sort volume at reference scale — are shared), and one
     # dynamic-k compile serves each key-word class of the grid instead of
     # one compile per k; this is exp6's counterpart of the shared-sort
-    # k-sweeps exp1-4 ride (round-4 exp6 was ~47 s/k = one 162M-element
-    # sort + one compile per (k, pivot)).
+    # k-sweeps exp1-4 ride (instead of one 162M-element sort + one
+    # compile per (k, pivot) at reference scale).
     if mesh is not None:
         from ..dist.vote import sharded_read_votes_multi
 

@@ -307,7 +307,7 @@ class ModelQc:
     pbsim1 install exists in this zero-egress environment to byte-check
     against, so the parser is strict and fails loudly (naming this
     contract) on anything that doesn't match — never silently
-    missimulating (round-3 VERDICT task 6).
+    missimulating.
     """
 
     probs: np.ndarray    # [101, K]; rows not in the file are zero

@@ -2,7 +2,7 @@
 pipeline CSVs must be byte-identical with a mesh to the single-device
 run, and the raw sweep stats must match across device counts (the
 reference fans exp2-4 over cores exactly like exp1,
-workflow/rules/exp_type_2.smk:354-380; round-4 VERDICT task 4)."""
+workflow/rules/exp_type_2.smk:354-380)."""
 
 import numpy as np
 import pytest

@@ -8,6 +8,7 @@ import pytest
 from conftest import random_dna
 from khoice_tpu import oracle
 from khoice_tpu.config import KhoiceConfig
+from khoice_tpu.oracle.pipelines import oracle_exp2_csvs
 from khoice_tpu.pipelines.exp0 import run_exp0, load_database_dir
 from khoice_tpu.pipelines.exp2 import run_exp2
 from khoice_tpu.pipelines.exp3 import run_exp3
@@ -44,65 +45,6 @@ def test_exp0_layout_and_determinism(rng, tmp_path):
     # round-trip via the reference database layout reader
     loaded = load_database_dir(str(t / "exp0_nonpivot_genomes"))
     assert sorted(loaded) == [1, 2, 3]
-
-
-def oracle_exp2_metrics(pivots, rest, k, num, nums):
-    pivot_set = oracle.set_counts(oracle.count_kmers(pivots[num], k), 1)
-    members = [oracle.set_counts(oracle.count_kmers(g, k), 1) for g in rest[num]]
-    rest_union = oracle.union_sum(members, cs=5000)
-    inter = oracle.intersect_sum(pivot_set, rest_union)
-    sub = oracle.subtract(pivot_set, rest_union)
-    return (
-        oracle.histogram(sub, cx=10000),
-        oracle.histogram(inter, cx=10000),
-    )
-
-
-def oracle_exp2_csvs(pivots, rest, ks, out_dir):
-    """Full oracle build of both exp2 CSVs (dataset-major rows, k inner,
-    per-group max normalization) for whole-file byte comparison."""
-    from khoice_tpu.pipelines.exp2 import ACROSS_HEADER, WITHIN_HEADER
-    from khoice_tpu.reports.csvio import write_csv_rows
-
-    nums = sorted(rest)
-    within_rows, across_rows = [], []
-    for num in nums:
-        for k in ks:
-            sub_h, int_h = oracle_exp2_metrics(pivots, rest, k, num, nums)
-            within_rows.append(
-                [f"group_{num}", str(k)]
-                + summarize_histogram_type2(sub_h, int_h, len(rest[num]), False, k)
-            )
-            pivot_set = oracle.set_counts(oracle.count_kmers(pivots[num], k), 1)
-            others = [
-                oracle.set_counts(
-                    oracle.union_sum(
-                        [oracle.set_counts(oracle.count_kmers(g, k), 1) for g in rest[j]],
-                        cs=5000,
-                    ),
-                    1,
-                )
-                for j in nums
-                if j != num
-            ]
-            au = oracle.union_sum(others, cs=5000)
-            asub = oracle.histogram(oracle.subtract(pivot_set, au), cx=10000)
-            ainter = oracle.histogram(oracle.intersect_sum(pivot_set, au), cx=10000)
-            across_rows.append(
-                [f"group_{num}", str(k)]
-                + summarize_histogram_type2(asub, ainter, len(nums), True, k)
-            )
-    for rows in (within_rows, across_rows):
-        for gid in [f"group_{n}" for n in nums]:
-            mx = max(r[8] for r in rows if r[0] == gid)
-            for r in rows:
-                if r[0] == gid:
-                    r.append(round(r[8] / mx, 4))
-    wpath = os.path.join(out_dir, "within.csv")
-    apath = os.path.join(out_dir, "across.csv")
-    write_csv_rows(wpath, WITHIN_HEADER, within_rows)
-    write_csv_rows(apath, ACROSS_HEADER, across_rows)
-    return wpath, apath
 
 
 def test_exp2_matches_oracle_byte_exact(rng, tmp_path):

@@ -9,7 +9,6 @@ import jax.numpy as jnp
 from conftest import random_dna
 from khoice_tpu import oracle
 from khoice_tpu.engine.ksweep import (
-    _sweep_class_fn,
     occurrence_histograms_sweep,
     sweep_classes,
 )
@@ -57,14 +56,14 @@ def test_plan_sweep_master_for_reference_grid():
     assert len(classes) == 1 and classes[0][1] == 2
     # classify callers (default mask_limit=32) fall back above 32 members;
     # exp1's occurrence consumers scan two mask channels and sweep to 64
-    from khoice_tpu.engine.ksweep import MASK_MEMBERS_XLA
+    from khoice_tpu.engine.ksweep import MASK_MEMBERS_OCC
 
     assert plan_sweep(grid, 33) == ([], sorted(set(grid)))
-    classes, remaining = plan_sweep(grid, 48, MASK_MEMBERS_XLA)
+    classes, remaining = plan_sweep(grid, 48, MASK_MEMBERS_OCC)
     assert remaining == [] and len(classes) == 1
-    classes, remaining = plan_sweep(grid, 64, MASK_MEMBERS_XLA)
+    classes, remaining = plan_sweep(grid, 64, MASK_MEMBERS_OCC)
     assert remaining == [] and len(classes) == 1
-    assert plan_sweep(grid, 65, MASK_MEMBERS_XLA) == ([], sorted(set(grid)))
+    assert plan_sweep(grid, 65, MASK_MEMBERS_OCC) == ([], sorted(set(grid)))
 
 
 @pytest.mark.heavy
@@ -109,7 +108,7 @@ def test_sweep_packed_payload_even_k_palindromes(rng):
 @pytest.mark.heavy
 def test_sweep_wide_members_matches_fused(rng):
     """48- and 64-member groups ride the shared sort bit-exactly (the
-    former 32-member cliff, round-4 VERDICT task 5): the scan runs two
+    former 32-member cliff): the scan runs two
     uint32 mask channels and the packed gid field is 6 bits wide."""
     base = random_dna(rng, 220)
     for n in (33, 48, 64):
@@ -121,9 +120,9 @@ def test_sweep_wide_members_matches_fused(rng):
             members.append("".join(seq) + random_dna(rng, 30 + i % 17))
         ks = [7, 12, 16, 21, 33]
         codes = _member_codes(members)
-        from khoice_tpu.engine.ksweep import MASK_MEMBERS_XLA, plan_sweep
+        from khoice_tpu.engine.ksweep import MASK_MEMBERS_OCC, plan_sweep
 
-        classes, remaining = plan_sweep(ks, n, MASK_MEMBERS_XLA)
+        classes, remaining = plan_sweep(ks, n, MASK_MEMBERS_OCC)
         assert remaining == [] and classes, f"n={n} must sweep"
         got = occurrence_histograms_sweep(codes, ks, cx=80)
         for k in ks:
@@ -202,15 +201,30 @@ def test_sweep_fallback_large_groups(rng):
     _check_vs_fused(members, [9, 11, 13])
 
 
-@pytest.mark.heavy
-def test_sweep_pallas_kernel_interpret_packed(rng):
-    """Packed-payload master class through the Pallas kernel (interpret)."""
-    from khoice_tpu.engine.ksweep import (
-        _extract_fwd_sweep,
-        _scan_multi_k_xla,
-        can_pack_payload,
+def _sorted_doubled(codes, gids, kmax, KW, packed):
+    """The sweep's sorted doubled-text elements, built step by step (not
+    through _sweep_doubled) so the scan is checked on its own."""
+    from khoice_tpu.engine.ksweep import _extract_fwd_sweep
+
+    cj = jnp.asarray(codes)
+    rc = jnp.where(cj < 4, cj ^ 3, cj)[::-1]
+    gj = jnp.asarray(gids)
+    fwd, pay = _extract_fwd_sweep(
+        jnp.concatenate([cj, rc]), jnp.concatenate([gj, gj[::-1]]),
+        kmax, KW, packed=packed,
     )
-    from khoice_tpu.kernels.ksweep_scan_pallas import TILE, scan_multi_k_pallas
+    if packed:
+        assert pay is None
+        return tuple(jax.lax.sort(list(fwd), num_keys=KW, is_stable=False)), None
+    ops = jax.lax.sort(list(fwd) + [pay], num_keys=KW, is_stable=False)
+    return tuple(ops[:KW]), ops[KW]
+
+
+@pytest.mark.heavy
+def test_sweep_scan_packed_matches_fused(rng):
+    """Packed-payload master class: the multi-k scan over the sorted
+    doubled text equals the per-k fused path at every k."""
+    from khoice_tpu.engine.ksweep import _scan_multi_k, can_pack_payload
 
     g = 5
     ks = (8, 21, 34, 40, 49)
@@ -224,33 +238,11 @@ def test_sweep_pallas_kernel_interpret_packed(rng):
             seq[rng.randrange(len(base))] = "ACGT"[rng.randrange(4)]
         members.append("".join(seq) + ("N" + random_dna(rng, 30) if i % 2 else ""))
     codes, gids = pack_members(_member_codes(members))
-    half = TILE // 2
-    target = ((codes.shape[0] + half - 1) // half) * half
-    pad = target - codes.shape[0]
-    codes = np.concatenate([codes, np.full(pad, 4, np.uint8)])
-    gids = np.concatenate([gids, np.zeros(pad, np.uint32)])
-
-    cj = jnp.asarray(codes)
-    rc = jnp.where(cj < 4, cj ^ 3, cj)[::-1]
-    codes2 = jnp.concatenate([cj, rc])
-    gj = jnp.asarray(gids)
-    gids2 = jnp.concatenate([gj, gj[::-1]])
-    fwd, pay = _extract_fwd_sweep(codes2, gids2, kmax, KW, packed=True)
-    assert pay is None
-    skeys = tuple(jax.lax.sort(list(fwd), num_keys=KW, is_stable=False))
-
-    want = np.asarray(
-        _scan_multi_k_xla(skeys, None, ks, kmax, KW, g, 5000, packed=True)
-    )
-    got = np.asarray(
-        scan_multi_k_pallas(
-            skeys, None, ks, kmax, KW, g, 5000, interpret=True, packed=True
-        )
-    )
-    assert got.tolist() == want.tolist()
+    skeys, _ = _sorted_doubled(codes, gids, kmax, KW, True)
+    got = np.asarray(_scan_multi_k(skeys, None, ks, kmax, KW, g, 5000, packed=True))
     for i, k in enumerate(ks):
         fused = occurrence_histogram(_member_codes(members), k, cx=g)
-        assert want[i].tolist() == fused
+        assert got[i].tolist() == fused, f"k={k}"
 
 
 @pytest.mark.parametrize(
@@ -258,20 +250,16 @@ def test_sweep_pallas_kernel_interpret_packed(rng):
     [
         (5, (7, 9, 12, 16), 2000),
         (12, (13, 14, 25), 2000),
-        # members long enough that the doubled array spans multiple kernel
-        # tiles, with poly-A blocks so single-key runs cross tile boundaries
+        # long members with poly-A blocks: single-key runs tens of
+        # thousands of elements long
         (4, (7, 8, 15), 15000),
     ],
 )
 @pytest.mark.heavy
-def test_sweep_pallas_kernel_interpret(rng, g, kset, member_len):
-    """The Pallas multi-k kernel (interpret mode) against the XLA scan."""
-    from khoice_tpu.engine.ksweep import (
-        _extract_fwd_sweep,
-        _scan_multi_k_xla,
-        sweep_classes,
-    )
-    from khoice_tpu.kernels.ksweep_scan_pallas import TILE, scan_multi_k_pallas
+def test_sweep_scan_matches_fused(rng, g, kset, member_len):
+    """The multi-k scan (separate payload word) equals the per-k fused
+    path, raw (doubled, palindromic) halves included."""
+    from khoice_tpu.engine.ksweep import _scan_multi_k, sweep_classes
 
     base = random_dna(rng, member_len)
     members = []
@@ -282,33 +270,16 @@ def test_sweep_pallas_kernel_interpret(rng, g, kset, member_len):
         extra = "A" * 4000 if member_len > 4000 else ""
         members.append("".join(seq) + extra + ("" if i % 2 else "N" + random_dna(rng, 40)))
     codes, gids = pack_members(_member_codes(members))
-    # pad so the doubled array is a whole number of kernel tiles
-    half = TILE // 2
-    target = ((codes.shape[0] + half - 1) // half) * half
-    pad = target - codes.shape[0]
-    if member_len > 4000:
-        assert 2 * target > TILE  # the kernel must actually cross tiles
-    assert pad >= 0
-    codes = np.concatenate([codes, np.full(pad, 4, np.uint8)])
-    gids = np.concatenate([gids, np.zeros(pad, np.uint32)])
-
     (kmax, KW, ks) = sweep_classes(kset)[0]
     assert set(ks) == set(kset)
-    cj = jnp.asarray(codes)
-    rc = jnp.where(cj < 4, cj ^ 3, cj)[::-1]
-    codes2 = jnp.concatenate([cj, rc])
-    gj = jnp.asarray(gids)
-    gids2 = jnp.concatenate([gj, gj[::-1]])
-    fwd, payload = _extract_fwd_sweep(codes2, gids2, kmax, KW)
-    ops = jax.lax.sort(list(fwd) + [payload], num_keys=KW, is_stable=False)
-    skeys, spay = tuple(ops[:KW]), ops[KW]
+    skeys, spay = _sorted_doubled(codes, gids, kmax, KW, False)
 
-    want = np.asarray(_scan_multi_k_xla(skeys, spay, ks, kmax, KW, g, 5000))
-    got = np.asarray(
-        scan_multi_k_pallas(skeys, spay, ks, kmax, KW, g, 5000, interpret=True)
-    )
-    assert got.tolist() == want.tolist()
-    # and the XLA scan itself matches the fused per-k path
+    got = np.asarray(_scan_multi_k(skeys, spay, ks, kmax, KW, g, 5000))
+    raw = np.asarray(_scan_multi_k(skeys, spay, ks, kmax, KW, g, 5000, raw=True))
+    assert raw.shape == (2, len(ks), g)
+    assert ((raw[0] + raw[1]) // 2).tolist() == got.tolist()
     for i, k in enumerate(ks):
+        if k % 2:
+            assert not raw[1, i].any(), f"odd k={k} has palindromic runs"
         fused = occurrence_histogram(_member_codes(members), k, cx=g)
-        assert want[i].tolist() == fused
+        assert got[i].tolist() == fused, f"k={k}"

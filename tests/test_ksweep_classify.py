@@ -151,115 +151,78 @@ def test_group_mask_annotation_matches_merge(rng):
         np.testing.assert_array_equal(n_new, n_old)
 
 
-@pytest.mark.heavy
-def test_pallas_classify_modes_match_xla(rng):
-    """The Pallas kernel's classification modes (pivot_rest, multi_pivot,
-    containment) must equal the XLA scans bin-for-bin — interpret mode on
-    CPU, even and odd ks, shared cores + palindromes + N runs."""
-    from khoice_tpu.engine.ksweep import plan_sweep
-    from khoice_tpu.engine.ksweep_classify import (
-        _sorted_doubled_fn,
-        _sweep_class_containment,
-        _sweep_class_multi_pivot,
-        _sweep_class_pivot_rest,
-    )
-    from khoice_tpu.engine.occurrence import pack_members
-    from khoice_tpu.kernels.ksweep_scan_pallas import TILE, scan_multi_k_pallas
+def _sets(groups, k):
+    return [oracle.set_counts(oracle.count_kmers(g, k), 1) for g in groups]
 
-    import jax.numpy as jnp
 
+def _bulk_world(rng):
+    """_world bulked up to ~7 kb members: long sorted runs, the pivot's
+    repeats exceeding a small cap."""
     pivot, rest = _world(rng)
-    D = 2
-    # bulk the members up so the packed doubled text reaches the Pallas
-    # TILE granule (pack_members pads to powers of two)
-    filler = random_dna(rng, 5500)
-    members = (
-        [encode_records(pivot + [filler])]
-        + [encode_records(g) for g in rest[:3]]
-        + [encode_records(rest[3])]
-    )
-    ks = (6, 8, 11, 16, 21)
-    n_members = len(members)
-    classes, rem = plan_sweep(ks, n_members)
-    assert not rem
-    codes, gids = pack_members(members)
-    n2 = 2 * codes.shape[0]
-    assert n2 % TILE == 0, "pad codes for the tile grid"
-    kmax, KW, cks, packed = classes[0]
-    skeys, spay = _sorted_doubled_fn(jnp.asarray(codes), jnp.asarray(gids),
-                                     kmax, KW, packed)
-
-    n_rest = n_members - 1
-    want = np.asarray(_sweep_class_pivot_rest(
-        skeys, spay, cks, kmax, KW, n_rest, 5000, packed))
-    got = np.asarray(scan_multi_k_pallas(
-        skeys, spay, cks, kmax, KW, n_rest + 1, 5000, interpret=True,
-        packed=packed, mode="pivot_rest", mode_params=n_rest))
-    np.testing.assert_array_equal(got, want, err_msg="pivot_rest")
-
-    # multi_pivot needs members laid out as D pivots + D groups
-    members2 = [encode_records(pivot + [filler]), encode_records(rest[0]),
-                encode_records(rest[1]), encode_records(rest[2])]
-    codes2, gids2 = pack_members(members2)
-    classes2, _ = plan_sweep(ks, 4)
-    kmax2, KW2, cks2, packed2 = classes2[0]
-    sk2, sp2 = _sorted_doubled_fn(jnp.asarray(codes2), jnp.asarray(gids2),
-                                  kmax2, KW2, packed2)
-    want = np.asarray(_sweep_class_multi_pivot(
-        sk2, sp2, cks2, kmax2, KW2, D, 5000, packed2))
-    got = np.asarray(scan_multi_k_pallas(
-        sk2, sp2, cks2, kmax2, KW2, 2 * D, 5000, interpret=True,
-        packed=packed2, mode="multi_pivot", mode_params=D)
-    ).reshape(len(cks2), D, D)
-    np.testing.assert_array_equal(got, want, err_msg="multi_pivot")
-
-    nq, ng = 2, 2
-    want = np.asarray(_sweep_class_containment(
-        sk2, sp2, cks2, kmax2, KW2, nq, ng, 5000, packed2))
-    got = np.asarray(scan_multi_k_pallas(
-        sk2, sp2, cks2, kmax2, KW2, nq + ng, 5000, interpret=True,
-        packed=packed2, mode="containment", mode_params=(nq, ng))
-    ).reshape(len(cks2), nq, ng + 1)
-    np.testing.assert_array_equal(got, want, err_msg="containment")
+    return pivot + [random_dna(rng, 5500), pivot[0][:60] * 5], rest
 
 
+@pytest.mark.parametrize(
+    "mode", ["pivot_rest", "multi_pivot", "containment", "buckets"]
+)
 @pytest.mark.heavy
-def test_pallas_buckets_mode_match_xla(rng):
-    """The Pallas 'buckets' mode (saturating segmented SUM channel) must
-    equal the XLA count-weighted scan, incl. saturation at a small cap
-    and palindromic strand-halving before the cap."""
-    from khoice_tpu.engine.ksweep import plan_sweep
-    from khoice_tpu.engine.ksweep_classify import (
-        _sorted_doubled_fn,
-        _sweep_class_feature_buckets,
-    )
-    from khoice_tpu.engine.occurrence import pack_members
-    from khoice_tpu.kernels.ksweep_scan_pallas import scan_multi_k_pallas
-
-    import jax.numpy as jnp
-
-    pivot, rest = _world(rng)
-    # repeats so multiplicities exceed the cap
-    pivot = [pivot[0], pivot[0][:60] * 5, random_dna(rng, 5000)]
-    D = 4
-    members = [encode_records(pivot)] + [encode_records(g) for g in rest]
+def test_classify_scan_modes_vs_oracle(rng, mode):
+    """Every classification mode of the multi-k scan, through its driver,
+    equals the oracle at even and odd ks (palindromes, N runs, shared
+    cores, saturation at a small cap)."""
+    pivot, rest = _bulk_world(rng)
     ks = (6, 8, 11, 16, 21)
-    cap = 5
-    classes, rem = plan_sweep(ks, len(members))
-    assert not rem
-    codes, gids = pack_members(members)
-    kmax, KW, cks, packed = classes[0]
-    skeys, spay = _sorted_doubled_fn(jnp.asarray(codes), jnp.asarray(gids),
-                                     kmax, KW, packed)
-    want_b, want_u = _sweep_class_feature_buckets(
-        skeys, spay, cks, kmax, KW, D, 5000, cap, packed)
-    flat = np.asarray(scan_multi_k_pallas(
-        skeys, spay, cks, kmax, KW, D + 1, 5000, interpret=True,
-        packed=packed, mode="buckets", mode_params=(D, cap)))
-    got_b = flat[:, : D * D].reshape(len(cks), D, D)
-    got_u = flat[:, D * D]
-    np.testing.assert_array_equal(got_b, np.asarray(want_b))
-    np.testing.assert_array_equal(got_u, np.asarray(want_u))
+    if mode == "pivot_rest":
+        members = [encode_records(pivot)] + [encode_records(g) for g in rest]
+        got, rem = pivot_rest_counts_sweep(members, ks)
+        for k in ks:
+            rsets = _sets(rest, k)
+            want = np.zeros(len(rest) + 1, np.int64)
+            for km in _sets([pivot], k)[0]:
+                want[sum(1 for r in rsets if km in r)] += 1
+            np.testing.assert_array_equal(got[k], want, err_msg=f"k={k}")
+    elif mode == "multi_pivot":
+        D = 2
+        pivots, groups = [pivot, rest[3]], rest[:D]
+        members = [encode_records(p) for p in pivots] + [
+            encode_records(g) for g in groups
+        ]
+        got, rem = multi_pivot_counts_sweep(members, D, ks)
+        for k in ks:
+            gsets = _sets(groups, k)
+            for num, pset in enumerate(_sets(pivots, k)):
+                want = np.zeros(D, np.int64)
+                for km in pset:
+                    want[sum(1 for j in range(D) if j != num and km in gsets[j])] += 1
+                np.testing.assert_array_equal(got[k][num], want, err_msg=f"k={k}")
+    elif mode == "containment":
+        queries, groups = [pivot, rest[2]], rest[:2]
+        members = [encode_records(q) for q in queries] + [
+            encode_records(g) for g in groups
+        ]
+        got, rem = containment_counts_sweep(members, 2, 2, ks)
+        for k in ks:
+            gsets = _sets(groups, k)
+            for qi, qset in enumerate(_sets(queries, k)):
+                want = [len(qset)] + [sum(1 for km in qset if km in g) for g in gsets]
+                assert got[k][qi].tolist() == want, f"k={k} q={qi}"
+    else:
+        D, cap = 4, 5
+        members = [encode_records(pivot)] + [encode_records(g) for g in rest]
+        got, rem = feature_buckets_sweep(members, D, ks, cap=cap)
+        for k in ks:
+            gsets = _sets(rest, k)
+            want_b = np.zeros((D, D), np.int64)
+            want_u = 0
+            for km, c in oracle.count_kmers(pivot, k, cs=cap).items():
+                m = [i for i in range(D) if km in gsets[i]]
+                if not m:
+                    want_u += c
+                for d in m:
+                    want_b[d, len(m) - 1] += c
+            np.testing.assert_array_equal(got[k][0], want_b, err_msg=f"k={k}")
+            assert got[k][1] == want_u, f"k={k}"
+    assert rem == []
 
 
 @pytest.mark.heavy

@@ -17,16 +17,10 @@ from conftest import random_dna
 from khoice_tpu import oracle
 from khoice_tpu.engine.occurrence import (
     GID_BITS,
-    _extract_canonical_dyn,
     _occurrence_histogram_dyn_packed,
-    _pack_gid_words,
-    kmax_class_packed,
-    occ_words_packed,
     occurrence_histogram,
-    pack_members,
 )
 from khoice_tpu.io import encode_records
-from khoice_tpu.kernels.occ_scan_pallas import TILE, occ_hist_packed_pallas
 
 
 def make_members(rng, n_members=4, length=400, muts=40):
@@ -122,55 +116,6 @@ def test_occurrence_table_packed_matches_composed_ops(rng, k):
     for wi in range(1, kw.shape[0]):
         flat = flat * (1 << 32) + kw[wi].astype(object)
     assert all(flat[i] <= flat[i + 1] for i in range(len(flat) - 1))
-
-
-def _sorted_packed(members, k):
-    codes, gids = pack_members([np.asarray(encode_records([m])) for m in members])
-    km = kmax_class_packed(k)
-    w = occ_words_packed(km)
-    n = codes.shape[0]
-    n_pad = ((n + TILE - 1) // TILE) * TILE
-    codes = np.concatenate([codes, np.full(n_pad - n, 4, np.uint8)])
-    gids = np.concatenate([gids, np.zeros(n_pad - n, np.uint32)])
-    keys, valid = _extract_canonical_dyn(
-        jnp.asarray(codes), jnp.uint32(k), km, w
-    )
-    packed = _pack_gid_words(keys, valid, jnp.asarray(gids), w)
-    return tuple(jax.lax.sort(list(packed), num_keys=w, is_stable=False))
-
-
-@pytest.mark.parametrize("k", [11, 21, 35])
-def test_packed_pallas_kernel_interpret(rng, k):
-    members = make_members(rng, n_members=5, length=3000, muts=150)
-    sp = _sorted_packed(members, k)
-    hist = np.asarray(
-        occ_hist_packed_pallas.__wrapped__(
-            sp, len(members), GID_BITS, interpret=True
-        )
-    )
-    od = oracle.union_sum(
-        [oracle.set_counts(oracle.count_kmers([m], k), 1) for m in members],
-        cs=5000,
-    )
-    assert hist.tolist() == oracle.histogram(od, cx=len(members))
-
-
-def test_packed_pallas_kernel_run_spanning_tiles(rng):
-    k = 7
-    seq = "ACGTGCA" * (TILE // 3)
-    members = [seq, seq[: len(seq) // 2]]
-    sp = _sorted_packed(members, k)
-    assert sp[0].shape[0] > TILE
-    hist = np.asarray(
-        occ_hist_packed_pallas.__wrapped__(
-            sp, len(members), GID_BITS, interpret=True
-        )
-    )
-    od = oracle.union_sum(
-        [oracle.set_counts(oracle.count_kmers([m], k), 1) for m in members],
-        cs=5000,
-    )
-    assert hist.tolist() == oracle.histogram(od, cx=len(members))
 
 
 def test_pack_members_device_matches_host(rng):

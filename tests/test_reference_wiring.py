@@ -1,4 +1,4 @@
-"""Mechanical reference-wiring audit (VERDICT round-1 item 7).
+"""Mechanical reference-wiring audit.
 
 Parses the MOUNTED reference files at /root/reference and asserts this
 repo's constants against the reference *text*, not a memory of it: CSV

@@ -50,7 +50,7 @@ def test_sharded_occurrence_static_path(rng, k):
 
 def test_sharded_dynamic_k_one_compile_per_class(rng):
     """A k sweep within one packed word class reuses ONE cached program
-    (VERDICT round-1 item 3: the SPMD path used to re-trace per call)."""
+    (the SPMD path used to re-trace per call)."""
     from khoice_tpu.dist.occurrence import _dyn_occ_fn
 
     members = make_members(rng)
@@ -66,8 +66,7 @@ def test_sharded_dynamic_k_one_compile_per_class(rng):
 
 def test_sharded_skewed_data_no_retry(rng):
     """Adversarially skewed keys (~90% poly-A prefix) must not overflow:
-    data-sampled split points adapt where the uniform CDF would not
-    (VERDICT round-1 item 5)."""
+    data-sampled split points adapt where the uniform CDF would not."""
     from khoice_tpu.dist.occurrence import _dyn_occ_fn
 
     skew = ["A" * 2500 + random_dna(rng, 260) for _ in range(3)]

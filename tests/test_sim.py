@@ -154,8 +154,7 @@ def test_pbsim2_hmm_model_file(tmp_path):
     triples, the `--hmm_model R95.model` family the reference invokes at
     prepare_data.smk:97-98) loads via the layout sniffer, reproduces its
     matrices, and drives sim_ont at the model's own calibrated error
-    rate; malformed keyword files fail naming the contract (round-4
-    VERDICT task 6)."""
+    rate; malformed keyword files fail naming the contract."""
     import pytest as _pytest
 
     from khoice_tpu.sim.error_models import QualityHmm, load_model_file
@@ -214,8 +213,7 @@ def test_pbsim1_model_qc_table(tmp_path):
     """A hand-written pbsim1 model_qc table (rows: <accuracy int> then
     quality-code probabilities) loads via the layout sniffer, binds to
     the requested accuracy-mean, and drives sim_ont with a statistically
-    calibrated error rate; malformed tables fail naming the contract
-    (round-3 VERDICT task 6)."""
+    calibrated error rate; malformed tables fail naming the contract."""
     import pytest as _pytest
 
     from khoice_tpu.sim.error_models import ModelQc, load_model_file

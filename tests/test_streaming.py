@@ -127,3 +127,49 @@ def test_streaming_auto_knobs(rng):
     )
     for k in KS:
         assert got[k] == want[k], f"k={k}"
+
+
+@pytest.mark.parametrize(
+    "chunk_elems,n_groups,pass_groups",
+    [
+        (10000, 3, 1),     # chunk and group buffers of no particular size
+        (16391, 4, 2),     # odd chunk length
+        (4099, 7, 7),      # many small chunks, one pass over every group
+        (65536, 2, None),  # one chunk, derived pass width
+    ],
+)
+def test_streaming_knobs_bit_exact(rng, chunk_elems, n_groups, pass_groups):
+    """The chunk and group sorts are plain lax.sort calls: any chunk
+    length and group split gives the in-core histograms exactly."""
+    members = _members(rng)[:3]
+    want = occurrence_histograms_sweep(members, KS, cx=8)
+    got = occurrence_histograms_sweep_streaming(
+        members, KS, cx=8, chunk_elems=chunk_elems, n_groups=n_groups,
+        pass_groups=pass_groups,
+    )
+    for k in KS:
+        assert got[k] == want[k], f"k={k}"
+
+
+@pytest.mark.heavy
+def test_sweep_histograms_unchanged_polyA(rng):
+    """End-to-end: the sweep stays bit-identical to the per-k fused path
+    on poly-A/poly-T-heavy text (giant tie runs in the sorts), in core
+    and streamed."""
+    from khoice_tpu.engine.occurrence import occurrence_histogram
+    from khoice_tpu.io.packing import encode_seq
+
+    seqs = [
+        "A" * 3000 + random_dna(rng, 2000) + "T" * 3000,
+        "T" * 2500 + random_dna(rng, 3000) + "A" * 1000 + "N" * 50,
+        random_dna(rng, 6000),
+    ]
+    members = [encode_seq(s) for s in seqs]
+    ks = [7, 11, 16, 22, 31, 34]
+    swept = occurrence_histograms_sweep(members, ks, cx=8)
+    for k in ks:
+        assert swept[k] == occurrence_histogram(members, k, cx=8), f"k={k}"
+    streamed = occurrence_histograms_sweep_streaming(
+        members, ks, cx=8, chunk_elems=8192, n_groups=3,
+    )
+    assert streamed == swept
